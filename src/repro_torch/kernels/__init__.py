@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the serving path, their plain PyTorch
+versions (`ref`) and the explicit `impl` dispatch (`ops`). Importing this
+package builds nothing: a kernel is compiled at its first launch."""
