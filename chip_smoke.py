@@ -1,8 +1,21 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written kernels
 from this checkout, holds each against its plain PyTorch version on the card,
-then serves the frozen ShiftAddViT at its serving geometry (196 tokens,
-d_model 128, 4 layers, 4 heads) through the bucketed engine for the dense,
-stage1 and shiftadd arms, and checks what comes out.
+then drives the port's two paths at the serving geometry (196 tokens,
+d_model 128, 4 layers, 4 heads) and checks what comes out:
+
+- [1] build the five kernel sources (one nvcc each, in parallel);
+- [2] each kernel against its plain version at the serving shapes and at
+  ragged ones; every tile of the three matmuls bit-identical;
+- [3] device time of each kernel at its bucket-32 shape beside its bound,
+  its plain version and, where one exists, one PyTorch call's time;
+- [4] serving the frozen ShiftAddViT through the bucketed engine for the
+  dense, stage1 and shiftadd arms;
+- [5] the autotune entry point: every serving site × bucket (1, 8, 32),
+  every launch configuration timed on the card, the table written to
+  build/TUNE_kernels_torch.json;
+- [6] serving shiftadd with that table: logits bit-identical to the untuned
+  engine's, 24 shift_matmul + 4 attention launches per forward, tuned and
+  untuned wall times side by side.
 
     python3 chip_smoke.py
 
@@ -16,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -30,7 +44,8 @@ BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 SHIFT_TOL = 2e-2      # scaled error, bf16 products summed in float32
-ATTN_TOL = 1e-3       # scaled error, float32 throughout
+ADD_TOL = 2e-2        # the same, for add_matmul and add_matmul_packed
+ATTN_TOL = 1e-3       # scaled error, float32 throughout (both attentions)
 # Engine logits, kernels vs plain versions on the card: the kernels sum in
 # other orders than cuBLAS, which can flip a ±1 attention code or a router
 # argmax that sits at a near-tie; one such flip moves a logit by far more
@@ -45,34 +60,50 @@ def log(*a):
 
 def kernel_times(torch, fn, iters):
     """{kernel name: (device µs, launches)} over `iters` back-to-back calls
-    of `fn` (after a warm-up), from a torch.profiler (CUPTI) trace."""
-    from torch.profiler import ProfilerActivity, profile
+    of `fn` (after a warm-up), from a torch.profiler (CUPTI) trace; {} if
+    the profiler recorded no device event in any of its attempts."""
+    from repro_torch.kernels.autotune import trace_device
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device time")
+    for name, ms in trace_device(fn, iters):
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + ms * 1e3, n + 1)
     return by_name
 
 
+PROFILED = "mean summed kernel durations per call (torch.profiler)"
+GRAPHED = ("mean per call over CUDA-graph replays (CUDA events, gaps between "
+           "kernels included; the profiler recorded nothing)")
+
+
 def device_ms(torch, fn, iters=50):
-    """Mean device milliseconds per call: the summed duration of the kernels
-    each call ran. Host launch overhead and gaps are left out: timing the
-    same loop with CUDA events measures the host's launch rate instead, as
-    each call's Python and ctypes overhead outlasts these kernels. Inputs
-    stay resident in L2, as in the model, where each kernel reads what the
-    op before it just wrote."""
-    return sum(t for t, _ in kernel_times(torch, fn, iters).values()) / iters / 1e3
+    """(mean device milliseconds per call, how it was timed): the summed
+    duration of the kernels each call ran. Host launch overhead and gaps are
+    left out: timing the same loop with CUDA events measures the host's
+    launch rate instead, as each call's Python and ctypes overhead outlasts
+    these kernels. Inputs stay resident in L2, as in the model, where each
+    kernel reads what the op before it just wrote. Should the profiler
+    record nothing, CUDA-graph replays timed with CUDA events stand in
+    (gaps between kernels included), and the method says so."""
+    from repro_torch.kernels.autotune import graph_ms
+
+    by_name = kernel_times(torch, fn, iters)
+    if by_name:
+        return sum(t for t, _ in by_name.values()) / iters / 1e3, PROFILED
+    log("  (the profiler recorded no device time; timed by CUDA-graph replays)")
+    return graph_ms(fn, iters), GRAPHED
+
+
+def timed(torch, **fns):
+    """{key: ms} and {key: how it was timed} of device_ms for each of
+    ms / plain_ms / library_ms (a None function gives None)."""
+    times, how = {}, {}
+    for key, fn in fns.items():
+        times[key], how[key] = device_ms(torch, fn) if fn is not None else (None, None)
+    return times, how
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
@@ -151,11 +182,11 @@ def time_shift_matmul(torch, dev, m, k, n):
     wp = pack_from_dense(torch.randn((k, n), generator=g, device=dev) * k ** -0.5)
     w_bf16 = po2_weight_from_packed(wp)           # yardstick only: pre-decoded
     x_bf16 = x.to(torch.bfloat16)
-    ms = device_ms(torch, lambda: shift_matmul(x, wp))
-    plain = device_ms(torch, lambda: ref.shift_matmul_ref(x, wp))
-    library = device_ms(torch, lambda: torch.matmul(x_bf16, w_bf16))
+    t, how = timed(torch, ms=lambda: shift_matmul(x, wp),
+                   plain_ms=lambda: ref.shift_matmul_ref(x, wp),
+                   library_ms=lambda: torch.matmul(x_bf16, w_bf16))
     b, by = bound_ms(4 * m * k + k * n + 4 * m * n, 2 * m * k * n, BF16_TENSOR_FLOPS)
-    return ms, plain, library, b, by
+    return t["ms"], t["plain_ms"], t["library_ms"], b, by, how
 
 
 def time_attention(torch, dev, gg, n, d):
@@ -164,12 +195,171 @@ def time_attention(torch, dev, gg, n, d):
 
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn((gg, n, d), generator=g, device=dev) for _ in range(3))
-    ms = device_ms(torch, lambda: bidir_binary_attention(q, k, v))
-    plain = device_ms(torch, lambda: ref.bidir_binary_attention_ref(q, k, v))
+    t, how = timed(torch, ms=lambda: bidir_binary_attention(q, k, v),
+                   plain_ms=lambda: ref.bidir_binary_attention_ref(q, k, v),
+                   library_ms=None)
     # ±1 contractions: KV (N·Dk·Dv multiply-adds) and the numerator (the
     # same), 2 operations each, on the float32 cores.
     b, by = bound_ms(4 * gg * n * 4 * d, 2 * 2 * gg * n * d * d, FP32_FLOPS)
-    return ms, plain, None, b, by
+    return t["ms"], t["plain_ms"], None, b, by, how
+
+
+def _signs(torch, gen, shape, dev, zeros=False):
+    """int8 codes: ±1, or {-1, 0, +1} with zeros=True."""
+    if zeros:
+        return torch.randint(-1, 2, shape, generator=gen, device=dev, dtype=torch.int8)
+    return torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int8) * 2 - 1
+
+
+def check_add_matmuls(torch, dev, shapes):
+    """add_matmul (b with zeros) and add_matmul_packed (K rounded up to 8)
+    against their plain versions; returns the max abs error of each."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.add_matmul import add_matmul
+    from repro_torch.kernels.add_matmul_packed import add_matmul_packed, pack_bits, unpack_bits
+    from repro_torch.parity import scaled_error
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = {"add_matmul": 0.0, "add_matmul_packed": 0.0}
+    for g, m, k, n in shapes:
+        x = torch.randn((g, m, k), generator=gen, device=dev)
+        b = _signs(torch, gen, (g, k, n), dev, zeros=True)
+        kp = -(-k // 8) * 8
+        xp = torch.randn((g, m, kp), generator=gen, device=dev)
+        packed = pack_bits(_signs(torch, gen, (g, kp, n), dev))
+        for name, got, want in (
+                ("add_matmul", add_matmul(x, b), ref.add_matmul_ref(x, b)),
+                ("add_matmul_packed", add_matmul_packed(xp, packed),
+                 ref.add_matmul_ref(xp, unpack_bits(packed)))):
+            torch.cuda.synchronize()
+            err = scaled_error(got, want)
+            log(f"  {name} G={g} M={m} K={k if name == 'add_matmul' else kp} N={n}: "
+                f"scaled err {err:.3e}")
+            if not err < ADD_TOL:
+                raise AssertionError(f"{name} {g}x{m}x{k}x{n}: {err} >= {ADD_TOL}")
+            worst[name] = max(worst[name], float((got - want).abs().max()))
+    return worst
+
+
+def check_tiles_bit_identical(torch, dev):
+    """Every tile of the three matmuls gives the default tile's bits: a tuned
+    launch never changes an output."""
+    from repro_torch.core.quant import pack_from_dense
+    from repro_torch.kernels.add_matmul import add_matmul
+    from repro_torch.kernels.add_matmul_packed import add_matmul_packed, pack_bits
+    from repro_torch.kernels.shift_matmul import shift_matmul
+    from repro_torch.kernels.tile_matmul import TILES
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((6272, 128), generator=gen, device=dev)
+    wp = pack_from_dense(torch.randn((128, 128), generator=gen, device=dev) / 11.3)
+    xa = torch.randn((128, 32, 200), generator=gen, device=dev)
+    b = _signs(torch, gen, (128, 200, 32), dev)
+    packed = pack_bits(b)
+    cases = {"shift_matmul": lambda t: shift_matmul(x, wp, t),
+             "add_matmul": lambda t: add_matmul(xa, b, t),
+             "add_matmul_packed": lambda t: add_matmul_packed(xa, packed, t)}
+    for name, fn in cases.items():
+        want = fn(None)
+        for tile in ((tm, tn) for tm in TILES for tn in TILES):
+            if not torch.equal(fn(tile), want):
+                raise AssertionError(f"{name}: tile {tile} changes the output")
+    if not torch.equal(cases["add_matmul_packed"](None), cases["add_matmul"](None)):
+        raise AssertionError("add_matmul_packed and add_matmul differ on the same codes")
+    log(f"  shift_matmul, add_matmul, add_matmul_packed: all {len(TILES) ** 2} tiles "
+        "bit-identical; packed == int8 operand bit for bit")
+
+
+def check_causal(torch, dev, shapes):
+    """The causal kernel against the quadratic plain version, with and
+    without return_state; ksum exact; run to run identical."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.linear_attention import binary_linear_attention
+    from repro_torch.parity import scaled_error
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for g, n, dk, dv, chunk in shapes:
+        q, k = (torch.randn((g, n, dk), generator=gen, device=dev) for _ in range(2))
+        v = torch.randn((g, n, dv), generator=gen, device=dev)
+        got = binary_linear_attention(q, k, v, chunk)
+        out, kv, ksum, vsum = binary_linear_attention(q, k, v, chunk, return_state=True)
+        want = ref.binary_linear_attention_ref(q, k, v)
+        st = ref.binary_linear_attention_state_ref(q, k, v)
+        torch.cuda.synchronize()
+        errs = [scaled_error(got, want), scaled_error(out, want),
+                scaled_error(kv, st["kv"]), scaled_error(vsum, st["vsum"])]
+        log(f"  binary_linear_attention G={g} N={n} Dk={dk} Dv={dv} chunk={chunk}: "
+            f"scaled err out {errs[0]:.3e}, with state {errs[1]:.3e}, kv {errs[2]:.3e}, "
+            f"vsum {errs[3]:.3e}")
+        if not max(errs) < ATTN_TOL:
+            raise AssertionError(f"causal {g}x{n}x{dk}x{dv}: {max(errs)} >= {ATTN_TOL}")
+        if not torch.equal(ksum, st["ksum"]):
+            raise AssertionError("causal: ksum is not exact")
+        if not (torch.equal(out, got)
+                and torch.equal(binary_linear_attention(q, k, v, chunk), got)):
+            raise AssertionError("causal: output differs between runs")
+        worst = max(worst, float((got - want).abs().max()), float((kv - st["kv"]).abs().max()))
+    return worst
+
+
+def time_add_matmul(torch, dev, g, m, k, n, packed=False):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.add_matmul import add_matmul
+    from repro_torch.kernels.add_matmul_packed import add_matmul_packed, pack_bits, unpack_bits
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((g, m, k), generator=gen, device=dev)
+    b = _signs(torch, gen, (g, k, n), dev)
+    if packed:
+        p = pack_bits(b)
+        t, how = timed(torch, ms=lambda: add_matmul_packed(x, p),
+                       plain_ms=lambda: ref.add_matmul_ref(x, unpack_bits(p)),
+                       library_ms=None)
+        b_bytes = g * k // 8 * n
+    else:
+        x_bf16, b_bf16 = x.to(torch.bfloat16), b.to(torch.bfloat16)
+        t, how = timed(torch, ms=lambda: add_matmul(x, b),
+                       plain_ms=lambda: ref.add_matmul_ref(x, b),
+                       library_ms=lambda: torch.bmm(x_bf16, b_bf16))
+        b_bytes = g * k * n
+    bound, by = bound_ms(4 * g * m * k + b_bytes + 4 * g * m * n, 2 * g * m * k * n,
+                         BF16_TENSOR_FLOPS)
+    return t["ms"], t["plain_ms"], t["library_ms"], bound, by, how
+
+
+def causal_ops(n, dk, dv, chunk):
+    """Operations of the chunked causal attention at one chunk size: per
+    chunk of r rows, the inter-chunk products against the carry (none for
+    the first chunk), the r(r+1)/2 causal scores and their sums over v, and
+    the carry update (none after the last chunk)."""
+    ops = 0
+    for c0 in range(0, n, chunk):
+        r = min(chunk, n - c0)
+        if c0 > 0:
+            ops += 2 * r * dk * dv + 2 * r * dk
+        pairs = r * (r + 1) // 2
+        ops += 2 * pairs * dk + 2 * pairs * dv + pairs
+        if c0 + r < n:
+            ops += 2 * r * dk * dv + r * (dk + dv)
+    return ops
+
+
+def time_causal(torch, dev, g, n, d):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.linear_attention import binary_linear_attention
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((g, n, d), generator=gen, device=dev) for _ in range(3))
+    chunk = min(256, n)               # what ops.binary_linear_attention_fused takes
+    t, how = timed(torch, ms=lambda: binary_linear_attention(q, k, v, chunk),
+                   plain_ms=lambda: ref.binary_linear_attention_ref(q, k, v),
+                   library_ms=None)
+    # The function's least work, not the kernel's own chunking: the fewest
+    # operations over every chunk size (1 is the recurrent form).
+    least = min(causal_ops(n, d, d, c) for c in range(1, n + 1))
+    b, by = bound_ms(4 * g * n * 4 * d, g * least, FP32_FLOPS)
+    return t["ms"], t["plain_ms"], None, b, by, how
 
 
 def seeded_live_params(torch, params, seed):
@@ -187,11 +377,13 @@ def seeded_live_params(torch, params, seed):
 def profile_forward(torch, engine, bucket, iters=20):
     """Device time of one forward on a full bucket: (kernels per forward,
     device-busy ms per forward, top kernels as (name, ms, launches) per
-    forward)."""
+    forward); "not measured" where the profiler recorded nothing."""
     c = engine.model.cfg
     images = torch.randn((bucket, c.image_size, c.image_size, c.in_channels),
                          device=engine.device)
     by_name = kernel_times(torch, lambda: engine.infer(images), iters)
+    if not by_name:
+        return "not measured", "not measured", []
     busy_ms = sum(t for t, _ in by_name.values()) / iters / 1e3
     n_kernels = sum(n for _, n in by_name.values()) / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -261,7 +453,8 @@ def serve_arms(torch, dev):
             n_k, busy, top = profile_forward(torch, engine, b)
             profiles[b] = {"kernels_per_forward": n_k, "device_busy_ms": busy,
                            "idle_share": (1.0 - busy / (lat[b] * 1e3)
-                                          if busy > 0 else "not measured"),
+                                          if isinstance(busy, float) and busy > 0
+                                          else "not measured"),
                            "top": top}
         results[arm] = {"launches": counts, "forwards": forwards,
                         "max_scaled_err_vs_plain": worst,
@@ -272,6 +465,89 @@ def serve_arms(torch, dev):
                         "profile": profiles}
         log(f"  {arm}: {json.dumps(results[arm])}")
     return results
+
+
+def run_autotune(torch, dev):
+    """Phase [5]: the autotune entry point at the serving geometry; writes
+    the table under build/ and returns (table as loaded back, report)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.nn.vit import ViTConfig
+
+    t0 = time.perf_counter()
+    table, report = autotune.autotune(ViTConfig(image_size=56), buckets=(1, 8, 32),
+                                      measure=True, device=dev)
+    if len(report) != 27:
+        raise AssertionError(f"autotune reported {len(report)} site x bucket pairs, not 27")
+    for row in report:
+        head = f"  {row['kernel']:<22} {row['site']:<14} b={row['bucket']:<3}"
+        if row["winner"] is None:
+            if not row["fits"]:
+                raise AssertionError(f"{row['kernel']} does not fit a block at {row}")
+            log(f"{head} fits ({row['smem_bytes']} B smem, {row['threads']} threads)")
+            continue
+        if not 0 < row["winner_ms"] <= row["default_ms"]:
+            raise AssertionError(f"bad timing row {row}")
+        log(f"{head} winner {row['winner']} {row['winner_ms']:.6f} ms; default "
+            f"{row['default']} {row['default_ms']:.6f} ms ({row['n_candidates']} timed"
+            f"{'' if row['timing'] == autotune.PROFILER else ', by CUDA-graph replays'})")
+    out = os.path.join(HERE, "build", "TUNE_kernels_torch.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    table.save(out, report=report)
+    loaded = autotune.load_table(out)
+    if loaded != table:
+        raise AssertionError("the saved table does not load back as written")
+    log(f"  {len(table)} geometries tuned in {time.perf_counter() - t0:.1f} s; wrote {out}")
+    return loaded, report
+
+
+def serve_tuned(torch, dev, table):
+    """Phase [6]: shiftadd served with the tuned table beside the untuned
+    engine; logits bit-identical, launches per forward unchanged. Returns the
+    tuned engine's launch counts over the requests."""
+    from repro_torch.core.policy import DENSE
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_vit import bucket_latencies
+    from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
+    from repro_torch.serve.vision import BucketedViTEngine, build_policy_model
+
+    cfg = ViTConfig(image_size=56)
+    dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
+    model, params = build_policy_model(cfg, "shiftadd", dense_model, dense_model.init(0))
+    params = seeded_live_params(torch, with_seeded_router(params, 7), 8)
+    untuned = BucketedViTEngine(model, params, device=dev).warmup()
+    tuned = BucketedViTEngine(model, params, device=dev, tune=table).warmup()
+    g = torch.Generator(device=dev).manual_seed(6)
+    requests = [torch.randn((s, 56, 56, 3), generator=g, device=dev) for s in REQUEST_SIZES]
+    forwards = sum(-(-s // 32) for s in REQUEST_SIZES)
+
+    ops.reset_launch_counts()
+    outs = [tuned.infer(r) for r in requests]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    got = (counts["shift_matmul"], counts["bidir_binary_attention"])
+    if got != (24 * forwards, 4 * forwards):
+        raise AssertionError(f"tuned shiftadd: launches {got} over {forwards} forwards")
+    for r, o in zip(requests, outs):
+        if not torch.equal(o, untuned.infer(r)):
+            raise AssertionError(f"tuned logits differ from untuned for a request of "
+                                 f"{r.shape[0]}")
+    hits = sum(tuned.plan.tune.lookup("shift_matmul", g=1, m=196 * b, k=128, n=128)
+               != {"tile_m": 64, "tile_n": 64} for b in tuned.buckets)
+    log(f"  tuned vs untuned logits bit-identical over {len(requests)} requests "
+        f"({forwards} forwards); {hits} of {len(tuned.buckets)} buckets run a "
+        f"non-default q/k/v/o tile")
+    # Interleaved in one call, three rounds of untuned, tuned, tuned,
+    # untuned; each entry is the median of 30 full-bucket batches.
+    lat = {"untuned": [], "tuned": []}
+    for name in ("untuned", "tuned", "tuned", "untuned") * 3:
+        lat[name].append(bucket_latencies(untuned if name == "untuned" else tuned, iters=30))
+    for b in tuned.buckets:
+        u = [x[b] * 1e3 for x in lat["untuned"]]
+        t = [x[b] * 1e3 for x in lat["tuned"]]
+        log(f"  bucket {b:2d}: wall ms median untuned {statistics.median(u):.4f}, tuned "
+            f"{statistics.median(t):.4f} (untuned {' '.join(f'{v:.4f}' for v in u)}; "
+            f"tuned {' '.join(f'{v:.4f}' for v in t)})")
+    return counts
 
 
 def main():
@@ -309,6 +585,18 @@ def main():
     check_row_invariance(torch, dev)
     attn_err = check_attention(torch, dev, [(4, 196, 32, 32), (128, 196, 32, 32),
                                             (8, 197, 32, 32), (2, 197, 64, 48)])
+    # add-matmul serving sites ktv (M=32, K=196, N=32) and q_ktv (M=196,
+    # K=32, N=32) at G = 4 heads × buckets 1 and 32, and two ragged shapes.
+    add_err = check_add_matmuls(torch, dev, [
+        (4, 32, 196, 32), (4, 196, 32, 32), (128, 32, 196, 32), (128, 196, 32, 32),
+        (3, 70, 300, 200), (1, 1, 8, 640)])
+    check_tiles_bit_identical(torch, dev)
+    # The causal site at bucket 32 with the default chunk (196) and every
+    # chunk the autotune launches there (64, 128, 256), then ragged shapes.
+    causal_err = check_causal(torch, dev, [
+        (128, 196, 32, 32, 196), (128, 196, 32, 32, 64), (128, 196, 32, 32, 128),
+        (128, 196, 32, 32, 256), (8, 197, 64, 48, 197), (8, 197, 64, 48, 64),
+        (2, 5000, 64, 64, 256)])
 
     log("[3] timing at the bucket-32 shapes")
     timings = {
@@ -316,31 +604,62 @@ def main():
         "shift_matmul up": time_shift_matmul(torch, dev, 4256, 128, 256),
         "shift_matmul down": time_shift_matmul(torch, dev, 4256, 256, 128),
         "bidir_binary_attention": time_attention(torch, dev, 128, 196, 32),
+        "add_matmul": time_add_matmul(torch, dev, 128, 32, 196, 32),
+        "add_matmul q_ktv": time_add_matmul(torch, dev, 128, 196, 32, 32),
+        "add_matmul_packed": time_add_matmul(torch, dev, 128, 32, 200, 32, packed=True),
+        "add_matmul_packed q_ktv": time_add_matmul(torch, dev, 128, 196, 32, 32,
+                                                   packed=True),
+        "binary_linear_attention": time_causal(torch, dev, 128, 196, 32),
     }
-    for name, (ms, plain, lib, b, by) in timings.items():
+    for name, (ms, plain, lib, b, by, _) in timings.items():
         log(f"  {name}: kernel {ms:.5f} ms, plain {plain:.5f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound {b:.5f} ms ({by})")
 
     log("[4] serving the three arms at 196 tokens")
     arms = serve_arms(torch, dev)
+    serving = {k: sum(a["launches"][k] for a in arms.values())
+               for k in ("shift_matmul", "bidir_binary_attention")}
 
-    launches = {k: sum(a["launches"][k] for a in arms.values())
-                for k in ("shift_matmul", "bidir_binary_attention")}
+    log("[5] autotune: every serving site x bucket (1, 8, 32), timed on the card")
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    table, report = run_autotune(torch, dev)
+    tune_launches = ops.launch_counts()
+    log("[6] serving shiftadd with the tuned table")
+    tuned_launches = serve_tuned(torch, dev, table)
+    path = {k: tune_launches[k] + tuned_launches[k] for k in tune_launches}
+    missing = [k for k, n in path.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the autotune/tuned-serving path launched no {missing}")
+    log(f"  launches on the autotune path [5]: {tune_launches}; tuned serving [6]: "
+        f"{tuned_launches}")
+
     kernels = []
-    for name, source, replaces, err, shape, t in (
+    for name, source, replaces, err, shape in (
             ("shift_matmul", "src/repro_torch/kernels/csrc/shift_matmul.cu",
-             "src/repro/kernels/shift_matmul.py:57", shift_err, "M=6272 K=128 N=128 fp32",
-             timings["shift_matmul"]),
+             "src/repro/kernels/shift_matmul.py:57", shift_err, "M=6272 K=128 N=128 fp32"),
             ("bidir_binary_attention",
              "src/repro_torch/kernels/csrc/bidir_linear_attention.cu",
              "src/repro/kernels/bidir_linear_attention.py:82", attn_err,
-             "G=128 N=196 D=32 fp32", timings["bidir_binary_attention"])):
-        ms, plain, lib, b, by = t
+             "G=128 N=196 D=32 fp32"),
+            ("add_matmul", "src/repro_torch/kernels/csrc/add_matmul.cu",
+             "src/repro/kernels/add_matmul.py:45", add_err["add_matmul"],
+             "G=128 M=32 K=196 N=32 fp32 x, int8 b (ktv, bucket 32)"),
+            ("add_matmul_packed", "src/repro_torch/kernels/csrc/add_matmul_packed.cu",
+             "src/repro/kernels/add_matmul_packed.py:62", add_err["add_matmul_packed"],
+             "G=128 M=32 K=200 N=32 fp32 x, 1-bit b (ktv, bucket 32)"),
+            ("binary_linear_attention", "src/repro_torch/kernels/csrc/linear_attention.cu",
+             "src/repro/kernels/linear_attention.py:97", causal_err,
+             "G=128 N=196 D=32 fp32 causal, chunk 196")):
+        ms, plain, lib, b, by, how = timings[name]
+        by_path = {"serving [4]": serving.get(name, 0), "autotune [5]": tune_launches[name],
+                   "tuned serving [6]": tuned_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": b, "bound_by": by, "library_ms": lib,
-                        "shape": shape})
+                        "timing": how, "shape": shape})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

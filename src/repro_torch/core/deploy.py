@@ -35,12 +35,15 @@ def _freeze_shift_leaf(leaf):
 class DeployPlan:
     """params: the frozen tree (same structure, shift subtrees packed);
     frozen_linears: shift subtrees packed; moe_layers: MoE feeds warmed;
-    token_counts: per-image token counts the capacity plans were warmed for."""
+    token_counts: per-image token counts the capacity plans were warmed for;
+    tune: the kernels.autotune.TuneTable every kernel call of the frozen
+    model takes (None → the kernels' default launch configurations)."""
 
     params: Any
     frozen_linears: int = 0
     moe_layers: int = 0
     token_counts: Tuple[int, ...] = ()
+    tune: Any = None
 
 
 def freeze_params(params):
@@ -63,9 +66,9 @@ def freeze_params(params):
     return walk(params), count
 
 
-def prepare_inference(model, params, token_counts=()) -> DeployPlan:
-    """Freeze `params` for serving and warm `model`'s MoE capacity plans for
-    the per-image `token_counts`."""
+def prepare_inference(model, params, token_counts=(), tune=None) -> DeployPlan:
+    """Freeze `params` for serving, warm `model`'s MoE capacity plans for
+    the per-image `token_counts`, and record the tune table."""
     from repro_torch.core.moe_primitives import MoEPrimitives
 
     frozen, n_frozen = freeze_params(params)
@@ -78,4 +81,5 @@ def prepare_inference(model, params, token_counts=()) -> DeployPlan:
             for t in token_counts:
                 feed.capacity_plan(t)
     return DeployPlan(params=frozen, frozen_linears=n_frozen,
-                      moe_layers=moe_layers, token_counts=token_counts)
+                      moe_layers=moe_layers, token_counts=token_counts,
+                      tune=tune)

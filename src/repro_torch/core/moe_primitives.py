@@ -32,10 +32,10 @@ class _MLPExpert:
     def init(self, generator):
         return {"up": self.up.init(generator), "down": self.down.init(generator)}
 
-    def __call__(self, params, x, impl=None):
+    def __call__(self, params, x, impl=None, tune=None):
         if self.kind == "shift":
-            h = self.up(params["up"], x, impl=impl)
-            return self.down(params["down"], gelu(h), impl=impl)
+            h = self.up(params["up"], x, impl=impl, tune=tune)
+            return self.down(params["down"], gelu(h), impl=impl, tune=tune)
         return self.down(params["down"], gelu(self.up(params["up"], x)))
 
 
@@ -139,14 +139,14 @@ class MoEPrimitives:
         segments = [buf[:, off:off + cap, :] for off, cap in zip(offsets, caps)]
         return info, segments, ungroup
 
-    def infer(self, params, x, impl=None):
+    def infer(self, params, x, impl=None, tune=None):
         """Deterministic serving forward: clean-logit argmax routing, static
         per-image capacities, experts on their static segments, per-token
-        gather combine. Returns y only."""
+        gather combine. Returns y only. impl/tune reach the kernel experts."""
         from repro_torch.nn.dispatch import combine_infer
 
         info, segments, ungroup = self._dispatch_tokens(params, x)
-        outs = [expert(params["experts"][i], seg, impl=impl)
+        outs = [expert(params["experts"][i], seg, impl=impl, tune=tune)
                 if getattr(expert, "accepts_impl", False)
                 else expert(params["experts"][i], seg)
                 for i, (expert, seg) in enumerate(zip(self.experts, segments))]

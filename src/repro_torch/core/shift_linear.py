@@ -18,8 +18,8 @@ from repro_torch.core.dense import truncated_normal
 
 
 class ShiftLinear:
-    # Serving threads kernel selection explicitly (engine → blocks → ops);
-    # nn.layers.call_linear keys on this attribute.
+    # Serving threads kernel selection and the tune table explicitly
+    # (engine → blocks → ops); nn.layers.call_linear keys on this attribute.
     accepts_impl = True
 
     def __init__(self, in_features, out_features, use_bias=True,
@@ -41,12 +41,12 @@ class ShiftLinear:
             params["bias"] = torch.zeros(self.out_features)
         return params
 
-    def __call__(self, params, x, impl=None):
+    def __call__(self, params, x, impl=None, tune=None):
         x = x.to(self.dtype)
         if "w_packed" in params:
             from repro_torch.kernels import ops
 
-            y = ops.shift_matmul(x, params["w_packed"], impl)
+            y = ops.shift_matmul(x, params["w_packed"], impl, tune)
         else:
             w_q = quant.po2_value(*quant.po2_quantize(params["w_latent"]))
             y = torch.matmul(x, w_q.to(self.dtype))

@@ -17,6 +17,14 @@ import torch
 from repro_torch.kernels import ref
 
 MAX_HEAD_DIM = 128
+TILE = 32          # row tile of csrc/bidir_linear_attention.cu
+THREADS = 256
+
+
+def smem_bytes(dk: int, dv: int) -> int:
+    """Shared memory of one block: KV, ksum, vsum and one row tile of codes,
+    values and denominators."""
+    return 4 * (dk * dv + dk + dv + TILE * (dk + dv) + TILE)
 
 
 def check_args(q, k, v):

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface (pointers, ints and the
 stream; the function returns the launch's `cudaGetLastError()`), so it is
 compiled by `nvcc` alone, without PyTorch's headers, into
-`build/kernels/<name>-<hash of the source>.so` at the root of the checkout.
-The content hash in the file name means an edited source is never served
-from a stale library. `build_all` starts one `nvcc` per source, all at once.
+`build/kernels/<name>-<hash of the sources>.so` at the root of the checkout.
+The content hash in the file name means an edited source or header is never
+served from a stale library. `build_all` starts one `nvcc` per source, all
+at once.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("shift_matmul", "bidir_linear_attention")
+SOURCES = ("shift_matmul", "bidir_linear_attention", "add_matmul",
+           "add_matmul_packed", "linear_attention")
 
 _libs = {}
 _lock = threading.Lock()
@@ -37,8 +39,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a hash of the source and of every header
+    beside it (`tile_matmul.cuh`), so an edited header rebuilds too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -2,11 +2,14 @@
 ShiftAddViT engine and report per-bucket latency and kernel launches.
 
     python -m repro_torch.launch.serve_vit --policy shiftadd
+    python -m repro_torch.launch.serve_vit --policy shiftadd --tune TUNE_kernels_torch.json
     python -m repro_torch.launch.serve_vit --policy stage1 --device cpu --image-size 16
 
 Weights are random from `--seed` (a dense ViT pushed through the paper's
 conversion, with a seeded non-zero MoE router). Runs on the GPU by default;
 `--device cpu` asks for the CPU (plain PyTorch versions of the kernels).
+`--tune` serves with a table written by `python -m repro_torch.launch.autotune`
+(a table that cannot be loaded serves the defaults, with a warning).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import time
 import torch
 
 from repro_torch.core.policy import DENSE
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
 from repro_torch.serve.vision import (SWEEP_POLICIES, BucketedViTEngine,
                                       build_policy_model)
@@ -46,7 +49,7 @@ def bucket_latencies(engine, iters=20, seed=0):
     return out
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--policy", default="shiftadd", choices=sorted(SWEEP_POLICIES))
     ap.add_argument("--requests", type=int, default=64)
@@ -56,7 +59,16 @@ def main():
     ap.add_argument("--impl", choices=list(ops.IMPLS), default=None,
                     help="default: cuda on a GPU, torch on the CPU")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    ap.add_argument("--tune", default=None, metavar="TUNE_kernels_torch.json",
+                    help="autotune table (repro_torch.launch.autotune output)")
+    args = ap.parse_args(argv)
+
+    tune = None
+    if args.tune:
+        tune = autotune.load_table(args.tune)
+        if tune is None:
+            print(f"warning: could not load tune table {args.tune}; serving "
+                  "with the default launch configurations")
 
     cfg = ViTConfig(image_size=args.image_size)
     dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
@@ -64,8 +76,9 @@ def main():
                                        dense_model.init(args.seed))
     params = with_seeded_router(params, args.seed + 1)
     engine = BucketedViTEngine(model, params, device=args.device,
-                               impl=args.impl).warmup()
+                               impl=args.impl, tune=tune).warmup()
     print(f"policy={args.policy} device={engine.device} impl={engine.impl} "
+          f"tuned={tune is not None} "
           f"buckets={list(engine.buckets)} tokens/image={cfg.n_patches} "
           f"shift weights packed={engine.plan.frozen_linears}")
 

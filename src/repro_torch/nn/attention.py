@@ -66,29 +66,31 @@ class Attention:
             p["dwconv"] = self.dwconv.init(generator)
         return p
 
-    def _qkv(self, params, x, impl=None):
+    def _qkv(self, params, x, impl=None, tune=None):
         """x: (B, N, d) → q, k, v as (B, H, N, Dh)."""
         b, n, _ = x.shape
-        q = L.call_linear(self.q_proj, params["q"], x, impl).reshape(
+        q = L.call_linear(self.q_proj, params["q"], x, impl, tune).reshape(
             b, n, self.h, self.dh)
-        k = L.call_linear(self.k_proj, params["k"], x, impl).reshape(
+        k = L.call_linear(self.k_proj, params["k"], x, impl, tune).reshape(
             b, n, self.hkv, self.dh)
-        vflat = L.call_linear(self.v_proj, params["v"], x, impl)
+        vflat = L.call_linear(self.v_proj, params["v"], x, impl, tune)
         if self.dwconv is not None:
             vflat = vflat + self.dwconv(params["dwconv"], vflat)
         v = vflat.reshape(b, n, self.hkv, self.dh)
         return tuple(t.permute(0, 2, 1, 3) for t in (q, k, v))
 
-    def infer(self, params, x, impl=None):
-        """Serving forward: x (B, N, d) → (B, N, d)."""
+    def infer(self, params, x, impl=None, tune=None):
+        """Serving forward: x (B, N, d) → (B, N, d). impl/tune arrive
+        threaded from the engine and go to every kernel call."""
         b, n, _ = x.shape
-        q, k, v = self._qkv(params, x, impl)
+        q, k, v = self._qkv(params, x, impl, tune)
         g = self.h // self.hkv
         kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
         if self.mode == "dense":
             out = softmax_attention(q, kf, vf)
         else:
             out = ops.binary_linear_attention_bidir(
-                q.float(), kf.float(), vf.float(), impl=impl).to(x.dtype)
+                q.float(), kf.float(), vf.float(), impl=impl,
+                tune=tune).to(x.dtype)
         out = out.permute(0, 2, 1, 3).reshape(b, n, self.h * self.dh)
-        return L.call_linear(self.o_proj, params["o"], out, impl)
+        return L.call_linear(self.o_proj, params["o"], out, impl, tune)

@@ -39,16 +39,16 @@ class TransformerBlock:
                 "feed": self.feed.init(generator),
                 "norm1": self.norm1.init(), "norm2": self.norm2.init()}
 
-    def _infer_feed(self, params, x, impl=None):
+    def _infer_feed(self, params, x, impl=None, tune=None):
         if isinstance(self.feed, MoEPrimitives):
-            return self.feed.infer(params, x, impl=impl)
-        return self.feed(params, x, impl=impl)
+            return self.feed.infer(params, x, impl=impl, tune=tune)
+        return self.feed(params, x, impl=impl, tune=tune)
 
-    def infer(self, params, x, impl=None):
+    def infer(self, params, x, impl=None, tune=None):
         """Serving forward, x (B, N, d) → (B, N, d). Every reduction is
         within one image, so a row's output never depends on its
         neighbours."""
         h = self.norm1(params["norm1"], x)
-        x = x + self.mixer.infer(params["mixer"], h, impl=impl)
+        x = x + self.mixer.infer(params["mixer"], h, impl=impl, tune=tune)
         h2 = self.norm2(params["norm2"], x)
-        return x + self._infer_feed(params["feed"], h2, impl=impl)
+        return x + self._infer_feed(params["feed"], h2, impl=impl, tune=tune)

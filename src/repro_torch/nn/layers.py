@@ -25,11 +25,11 @@ def make_linear(kind, d_in, d_out, use_bias=False, dtype=torch.float32):
     return ShiftLinear(d_in, d_out, use_bias=use_bias, dtype=dtype, mode=mode)
 
 
-def call_linear(layer, params, x, impl=None):
-    """Apply a `make_linear` product, threading the kernel choice to layers
-    that have one (ShiftLinear); Dense has none."""
+def call_linear(layer, params, x, impl=None, tune=None):
+    """Apply a `make_linear` product, threading the kernel choice and the
+    tune table to layers that have a kernel (ShiftLinear); Dense has none."""
     if getattr(layer, "accepts_impl", False):
-        return layer(params, x, impl=impl)
+        return layer(params, x, impl=impl, tune=tune)
     return layer(params, x)
 
 
@@ -65,9 +65,9 @@ class MLP:
     def init(self, generator):
         return {"up": self.up.init(generator), "down": self.down.init(generator)}
 
-    def __call__(self, params, x, impl=None):
-        h = gelu(call_linear(self.up, params["up"], x, impl))
-        return call_linear(self.down, params["down"], h, impl)
+    def __call__(self, params, x, impl=None, tune=None):
+        h = gelu(call_linear(self.up, params["up"], x, impl, tune))
+        return call_linear(self.down, params["down"], h, impl, tune)
 
 
 class DWConv1D:

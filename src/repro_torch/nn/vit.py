@@ -88,13 +88,15 @@ class ShiftAddViT:
         return x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p),
                                                    p * p * ch)
 
-    def infer(self, params, images, impl=None):
+    def infer(self, params, images, impl=None, tune=None):
         """images (B, H, W, C) → logits (B, n_classes). `impl` ("cuda" |
-        "torch" | None for the device's default) threads to every kernel."""
+        "torch" | None for the device's default) and `tune` (a
+        kernels.autotune.TuneTable, or None for the defaults) thread to every
+        kernel call."""
         dt = self.cfg.activation_dtype
         x = self.patch_embed(params["patch_embed"], self.patchify(images).to(dt))
         for blk, p in zip(self.blocks, params["blocks"]):
-            x = blk.infer(p, x, impl=impl)
+            x = blk.infer(p, x, impl=impl, tune=tune)
         x = self.final_norm(params["final_norm"], x)
         pooled = x.mean(dim=1)                                     # (B, d)
         w = params["head"]["kernel"].to(pooled.dtype)
@@ -103,11 +105,13 @@ class ShiftAddViT:
             logits = logits + params["head"]["bias"].to(pooled.dtype)
         return logits
 
-    def prepare_inference(self, params, token_counts=()):
+    def prepare_inference(self, params, token_counts=(), tune=None):
         """Deployment freeze (core.deploy): pack every shift weight to int8
-        and warm the MoE capacity plans."""
+        and warm the MoE capacity plans. `tune` is recorded on the plan and
+        is threaded to `infer` beside the frozen params."""
         from repro_torch.core.deploy import prepare_inference
-        return prepare_inference(self, params, token_counts=token_counts)
+        return prepare_inference(self, params, token_counts=token_counts,
+                                 tune=tune)
 
     def convert_from(self, dense_model: "ShiftAddViT", dense_params, stage=2):
         """Reparameterize dense ViT params into this policy's structure.

@@ -43,11 +43,13 @@ class BucketedViTEngine:
     moved to `device`). device: "cuda" by default; raises when there is no
     GPU unless the caller passes device="cpu". impl: "cuda" (the hand-written
     kernels) or "torch" (their plain versions); default "cuda" on a GPU,
-    "torch" on the CPU.
+    "torch" on the CPU. tune: a kernels.autotune.TuneTable whose launch
+    configurations every kernel call takes (None → the defaults); no entry
+    changes a logit's bits.
     """
 
     def __init__(self, model: ShiftAddViT, params, buckets=DEFAULT_BUCKETS,
-                 device="cuda", impl=None):
+                 device="cuda", impl=None, tune=None):
         if len(buckets) == 0 or min(buckets) < 1:
             raise ValueError(f"buckets must be positive, got {buckets}")
         self.model = model
@@ -56,7 +58,7 @@ class BucketedViTEngine:
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.plan = model.prepare_inference(
             _to_device(params, self.device),
-            token_counts=(model.cfg.n_patches,))
+            token_counts=(model.cfg.n_patches,), tune=tune)
         self.batches_served = 0
         self.images_served = 0
         self.padded_images_served = 0   # bucket slots, padding included
@@ -70,7 +72,8 @@ class BucketedViTEngine:
 
     @torch.inference_mode()
     def _call(self, images):
-        return self.model.infer(self.plan.params, images, impl=self.impl)
+        return self.model.infer(self.plan.params, images, impl=self.impl,
+                                tune=self.plan.tune)
 
     def warmup(self):
         """Run every bucket once (kernel builds, allocator, library set-up)."""

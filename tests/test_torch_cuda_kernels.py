@@ -5,22 +5,41 @@ kernel has no CPU mode). Run on a machine with the card and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
-Tolerances are the reference kernel tests' scaled error: < 2e-2 for
-`shift_matmul` (bf16 products, float32 sums in another order) and < 1e-3 for
-the attention (float32 throughout). This file imports no JAX, so it runs
-where only the port is installed."""
+Tolerances are the reference kernel tests' scaled error: < 2e-2 for the
+matmuls (`shift_matmul`, `add_matmul`, `add_matmul_packed`: bf16 products,
+float32 sums in another order) and < 1e-3 for the attentions (float32
+throughout). Every tile shape of a matmul gives the same bits (the K panel is
+fixed), which the tile tests hold exactly. This file imports no JAX, so it
+runs where only the port is installed."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.quant import pack_from_dense  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import add_matmul as tadd  # noqa: E402
+from repro_torch.kernels import add_matmul_packed as tpacked  # noqa: E402
 from repro_torch.kernels import bidir_linear_attention as tbidir  # noqa: E402
+from repro_torch.kernels import linear_attention as tcausal  # noqa: E402
 from repro_torch.kernels import shift_matmul as tshift  # noqa: E402
+from repro_torch.kernels.tile_matmul import TILES  # noqa: E402
 from repro_torch.parity import scaled_error  # noqa: E402
 
 SHIFT_SHAPES = [(8, 32, 16), (70, 300, 200), (128, 512, 128), (1, 64, 640),
                 (197, 100, 60), (5, 7, 3), (6272, 128, 128), (4256, 256, 128)]
+ADD_SHAPES = [(2, 8, 32, 16), (6, 50, 100, 60), (1, 128, 512, 128),
+              (1, 197, 64, 48), (2, 197, 100, 60), (1, 3, 5, 2),
+              (128, 32, 196, 32), (128, 196, 32, 32), (3, 70, 300, 200),
+              (1, 1, 8, 640)]
+PACKED_SHAPES = [(2, 16, 64, 32), (1, 50, 128, 96), (3, 8, 256, 128),
+                 (1, 197, 64, 48), (2, 33, 72, 60), (128, 32, 200, 32),
+                 (128, 196, 32, 32), (1, 1, 8, 640)]
+CAUSAL_SHAPES = [(1, 128, 16, 16, 128), (4, 256, 64, 64, 128),
+                 (3, 512, 80, 80, 128), (2, 384, 128, 96, 128),
+                 (2, 300, 24, 20, 128), (128, 196, 32, 32, 196),
+                 (8, 197, 64, 48, 64), (2, 5000, 64, 64, 256), (1, 1, 8, 8, 256),
+                 (2, 7, 32, 16, 64), (1, 100, 16, 16, 1)]
+ALL_TILES = [(tm, tn) for tm in TILES for tn in TILES]
 BIDIR_SHAPES = [(2, 64, 32, 32), (4, 197, 64, 48), (3, 196, 80, 80),
                 (2, 8, 16, 16), (128, 196, 32, 32), (1, 33, 7, 5),
                 (1, 5000, 128, 128)]
@@ -102,3 +121,148 @@ def test_kernel_rejects_oversized_head_dim(cuda):
     q = torch.zeros((1, 4, 129), device=cuda)
     with pytest.raises(ValueError):
         tbidir.bidir_binary_attention(q, q, q)
+
+
+def _signs(gen, shape, dev, zeros=False):
+    lo = -1 if zeros else 0
+    b = torch.randint(lo, 2, shape, generator=gen, device=dev, dtype=torch.int8)
+    return b if zeros else b * 2 - 1
+
+
+@pytest.mark.gpu
+def test_shift_matmul_every_tile_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for m, k, n in ((6272, 128, 128), (197, 300, 200), (1, 64, 640)):
+        wp = _packed(g, k, n, cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+            want = tshift.shift_matmul(x, wp)
+            for tile in ALL_TILES:
+                assert torch.equal(tshift.shift_matmul(x, wp, tile), want), (m, k, n, tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,m,k,n", ADD_SHAPES)
+def test_add_matmul_kernel(cuda, g, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(g + m + k + n)
+    x = torch.randn((g, m, k), generator=gen, device=cuda).to(dtype)
+    b = _signs(gen, (g, k, n), cuda, zeros=True)
+    n0 = tadd.add_matmul.launches
+    got = tadd.add_matmul(x, b)
+    torch.cuda.synchronize()
+    assert tadd.add_matmul.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (g, m, n)
+    assert scaled_error(got, ref.add_matmul_ref(x, b)) < 2e-2
+    for tile in ALL_TILES:
+        assert torch.equal(tadd.add_matmul(x, b, tile), got), tile
+
+
+@pytest.mark.gpu
+def test_add_matmul_zeros_contribute_nothing(cuda):
+    x = torch.randn((2, 40, 70), device=cuda)
+    assert torch.equal(tadd.add_matmul(x, torch.zeros((2, 70, 9), dtype=torch.int8,
+                                                      device=cuda)),
+                       torch.zeros((2, 40, 9), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,m,k,n", PACKED_SHAPES)
+def test_add_matmul_packed_kernel(cuda, g, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(g * m + k + n)
+    x = torch.randn((g, m, k), generator=gen, device=cuda).to(dtype)
+    b = _signs(gen, (g, k, n), cuda)
+    packed = tpacked.pack_bits(b)
+    n0 = tpacked.add_matmul_packed.launches
+    got = tpacked.add_matmul_packed(x, packed)
+    torch.cuda.synchronize()
+    assert tpacked.add_matmul_packed.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (g, m, n)
+    assert scaled_error(got, ref.add_matmul_ref(x, b)) < 2e-2
+    assert torch.equal(got, tadd.add_matmul(x, b)), "same bits as the int8 operand"
+    for tile in ALL_TILES:
+        assert torch.equal(tpacked.add_matmul_packed(x, packed, tile), got), tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,dk,dv,chunk", CAUSAL_SHAPES)
+def test_causal_attention_kernel(cuda, g, n, dk, dv, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(n + dk)
+    q, k = (torch.randn((g, n, dk), generator=gen, device=cuda) for _ in range(2))
+    v = torch.randn((g, n, dv), generator=gen, device=cuda)
+    n0 = tcausal.binary_linear_attention.launches
+    got = tcausal.binary_linear_attention(q, k, v, chunk)
+    out, kv, ksum, vsum = tcausal.binary_linear_attention(q, k, v, chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert tcausal.binary_linear_attention.launches == n0 + 2
+    assert scaled_error(got, ref.binary_linear_attention_ref(q, k, v)) < 1e-3
+    assert torch.equal(out, got), "return_state leaves the output as it was"
+    want = ref.binary_linear_attention_state_ref(q, k, v)
+    assert torch.equal(ksum, want["ksum"]), "ksum is a sum of ±1: exact"
+    assert scaled_error(kv, want["kv"]) < 1e-3
+    assert scaled_error(vsum, want["vsum"]) < 1e-3
+    assert torch.equal(tcausal.binary_linear_attention(q, k, v, chunk), got), \
+        "fixed summation order: run-to-run identical"
+
+
+@pytest.mark.gpu
+def test_new_kernels_launch_through_ops(cuda):
+    """impl="cuda" on CUDA tensors launches each new kernel once, with the
+    tune table's configuration; impl="torch" launches nothing."""
+    from repro_torch.kernels.autotune import TuneTable, geometry_key
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((8, 32, 200), generator=gen, device=cuda)
+    b = _signs(gen, (8, 200, 32), cuda)
+    packed = tpacked.pack_bits(b)
+    q = torch.randn((2, 4, 196, 32), generator=gen, device=cuda)
+    table = TuneTable.from_dicts({
+        geometry_key("add_matmul", g=8, m=32, k=200, n=32): {"tile_m": 32, "tile_n": 32},
+        geometry_key("linear_attention", g=8, n=196, dk=32, dv=32): {"chunk_rows": 64}})
+    before = ops.launch_counts()
+    ops.add_matmul(x, b, "torch")
+    ops.add_matmul_bitpacked(x, packed, "torch")
+    ops.binary_linear_attention_fused(q, q, q, impl="torch")
+    assert ops.launch_counts() == before
+    tuned = ops.add_matmul(x, b, "cuda", table)
+    assert torch.equal(tuned, ops.add_matmul(x, b, "cuda"))
+    ops.add_matmul_bitpacked(x, packed, "cuda", table)
+    out64 = ops.binary_linear_attention_fused(q, q, q, impl="cuda", tune=table)
+    assert torch.equal(out64, ops.binary_linear_attention_fused(q, q, q, chunk=64,
+                                                                impl="cuda"))
+    after = ops.launch_counts()
+    assert after["add_matmul"] == before["add_matmul"] + 2
+    assert after["add_matmul_packed"] == before["add_matmul_packed"] + 1
+    assert after["binary_linear_attention"] == before["binary_linear_attention"] + 2
+
+
+@pytest.mark.gpu
+def test_autotune_times_each_site_by_either_method(cuda, monkeypatch):
+    """measure_site reads kernel durations from a profiler trace; where the
+    profiler records nothing, CUDA-graph replays time the whole site, and
+    the launch counts are those the replays ran."""
+    from repro_torch.analysis.kernel_contracts import serving_sites
+    from repro_torch.kernels import autotune
+    from repro_torch.nn.vit import ViTConfig
+
+    counted = {"shift_matmul": "shift_matmul", "add_matmul": "add_matmul",
+               "add_matmul_packed": "add_matmul_packed",
+               "linear_attention": "binary_linear_attention"}
+
+    sites = [s for s in serving_sites(ViTConfig(image_size=56), 1)
+             if autotune.SEARCH_SPACE[s["kernel"]]]
+    for spec in sites:
+        configs = autotune.candidates(spec)[:2]
+        ms, how = autotune.measure_site(spec, configs, iters=5, device=cuda)
+        assert how == autotune.PROFILER and all(0 < t < 10 for t in ms), spec
+    monkeypatch.setattr(autotune, "trace_device", lambda fn, iters: [])
+    for spec in sites:
+        configs = autotune.candidates(spec)[:2]
+        name = counted[spec["kernel"]]
+        before = ops.launch_counts()[name]
+        ms, how = autotune.measure_site(spec, configs, iters=5, device=cuda)
+        assert how == autotune.GRAPH and all(0 < t < 10 for t in ms), spec
+        # Two warm-up calls, then per config one call before capture and
+        # 5 launches in each of 1 + 5 replays; the capture itself counts none.
+        assert ops.launch_counts()[name] - before == 2 + 2 * (1 + 5 * 6), spec
