@@ -5,9 +5,13 @@ d_model 128, 4 layers, 4 heads) and checks what comes out:
 
 - [1] build the five kernel sources (one nvcc each, in parallel);
 - [2] each kernel against its plain version at the serving shapes and at
-  ragged ones; every tile of the three matmuls bit-identical;
-- [3] device time of each kernel at its bucket-32 shape beside its bound,
-  its plain version and, where one exists, one PyTorch call's time;
+  ragged ones, the attentions also at head dim 256 (Dv split across
+  blocks); every tile of the three matmuls bit-identical, a row of
+  shift_matmul and a batch entry of add_matmul the same bits alone as
+  among all;
+- [3] device time of each kernel at its bucket-32 shape beside its time
+  with the first tiled matmul core, its bound, its plain version and, where
+  one exists, one PyTorch call's time;
 - [4] serving the frozen ShiftAddViT through the bucketed engine for the
   dense, stage1 and shiftadd arms;
 - [5] the autotune entry point: every serving site × bucket (1, 8, 32),
@@ -52,6 +56,15 @@ ATTN_TOL = 1e-3       # scaled error, float32 throughout (both attentions)
 # than rounding, so the bound is the kernel tolerance, not float32 noise.
 ENGINE_TOL = 2e-2
 REQUEST_SIZES = (1, 5, 32, 40)
+# Device ms per launch of each kernel at the phase-[3] shapes with the
+# first tiled matmul core (WMMA, before its redesign for Hopper): this
+# script's run on an NVIDIA H100 80GB HBM3 at 700.00 W, recorded in PERF.md,
+# printed beside each new time.
+EARLIER_MS = {"shift_matmul": 0.01463546, "shift_matmul up": 0.01544,
+           "shift_matmul down": 0.02546, "bidir_binary_attention": 0.04518494,
+           "add_matmul": 0.01867232, "add_matmul q_ktv": 0.00719,
+           "add_matmul_packed": 0.01797008, "add_matmul_packed q_ktv": 0.00746,
+           "binary_linear_attention": 0.19065472}
 
 
 def log(*a):
@@ -136,19 +149,36 @@ def check_shift_matmul(torch, dev, shapes):
 
 
 def check_row_invariance(torch, dev):
-    """Row i of shift_matmul is bit-identical at M=1 and at M=6272."""
+    """Row i of shift_matmul is bit-identical at M=1 and at the full M of
+    each serving site; batch·head g of add_matmul alone gives the bits it
+    gets among G=128, at ktv and q_ktv."""
     from repro_torch.core.quant import pack_from_dense
+    from repro_torch.kernels.add_matmul import add_matmul
     from repro_torch.kernels.shift_matmul import shift_matmul
 
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((6272, 128), generator=g, device=dev)
-    wp = pack_from_dense(torch.randn((128, 128), generator=g, device=dev) / 11.3)
-    full = shift_matmul(x, wp)
-    for i in (0, 63, 64, 3137, 6271):
-        one = shift_matmul(x[i:i + 1].contiguous(), wp)
-        if not torch.equal(one[0], full[i]):
-            raise AssertionError(f"shift_matmul row {i} differs between M=1 and M=6272")
-    log("  shift_matmul rows 0, 63, 64, 3137, 6271: bit-identical at M=1 and M=6272")
+    for m, k, n in ((6272, 128, 128), (4256, 128, 256), (4256, 256, 128)):
+        x = torch.randn((m, k), generator=g, device=dev)
+        wp = pack_from_dense(torch.randn((k, n), generator=g, device=dev) * k ** -0.5)
+        full = shift_matmul(x, wp)
+        for i in (0, 63, 64, 3137, m - 1):
+            one = shift_matmul(x[i:i + 1].contiguous(), wp)
+            if not torch.equal(one[0], full[i]):
+                raise AssertionError(f"shift_matmul {m}x{k}x{n}: row {i} differs between "
+                                     f"M=1 and M={m}")
+    log("  shift_matmul rows 0, 63, 64, 3137, M-1: bit-identical at M=1 and at M=6272 "
+        "(q/k/v/o), 4256 (expert up, down)")
+    for m, k, n in ((32, 196, 32), (196, 32, 32)):
+        x = torch.randn((128, m, k), generator=g, device=dev)
+        b = _signs(torch, g, (128, k, n), dev, zeros=True)
+        full = add_matmul(x, b)
+        for i in (0, 77, 127):
+            one = add_matmul(x[i:i + 1].contiguous(), b[i:i + 1].contiguous())
+            if not torch.equal(one[0], full[i]):
+                raise AssertionError(f"add_matmul {m}x{k}x{n}: batch entry {i} differs "
+                                     "alone and among G=128")
+    log("  add_matmul batch entries 0, 77, 127: bit-identical alone and among G=128 "
+        "(ktv, q_ktv)")
 
 
 def check_attention(torch, dev, shapes):
@@ -242,7 +272,8 @@ def check_add_matmuls(torch, dev, shapes):
 
 
 def check_tiles_bit_identical(torch, dev):
-    """Every tile of the three matmuls gives the default tile's bits: a tuned
+    """Every tile of the three matmuls gives the default tile's bits at the
+    serving shapes and at a ragged one longer than one K chunk: a tuned
     launch never changes an output."""
     from repro_torch.core.quant import pack_from_dense
     from repro_torch.kernels.add_matmul import add_matmul
@@ -250,24 +281,42 @@ def check_tiles_bit_identical(torch, dev):
     from repro_torch.kernels.shift_matmul import shift_matmul
     from repro_torch.kernels.tile_matmul import TILES
 
+    from repro_torch.kernels.tile_matmul import _sms, launch_tile
+
     gen = torch.Generator(device=dev).manual_seed(10)
-    x = torch.randn((6272, 128), generator=gen, device=dev)
-    wp = pack_from_dense(torch.randn((128, 128), generator=gen, device=dev) / 11.3)
-    xa = torch.randn((128, 32, 200), generator=gen, device=dev)
-    b = _signs(torch, gen, (128, 200, 32), dev)
-    packed = pack_bits(b)
-    cases = {"shift_matmul": lambda t: shift_matmul(x, wp, t),
-             "add_matmul": lambda t: add_matmul(xa, b, t),
-             "add_matmul_packed": lambda t: add_matmul_packed(xa, packed, t)}
-    for name, fn in cases.items():
+    cases = {}
+    # The last shape of each kernel is large enough that every tile launches
+    # as itself (no tile is shrunk to the product or to cover the SMs).
+    for m, k, n in ((6272, 128, 128), (4256, 128, 256), (4256, 256, 128), (300, 600, 200),
+                    (4256, 256, 256)):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        wp = pack_from_dense(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+        cases[f"shift_matmul {m}x{k}x{n}"] = (1, m, n,
+                                              lambda t, x=x, wp=wp: shift_matmul(x, wp, t))
+    for g, m, k, n in ((128, 32, 200, 32), (128, 200, 32, 32), (3, 70, 304, 200),
+                       (16, 512, 200, 256)):
+        xa = torch.randn((g, m, k), generator=gen, device=dev)
+        b = _signs(torch, gen, (g, k, n), dev)
+        packed = pack_bits(b)
+        cases[f"add_matmul {g}x{m}x{k}x{n}"] = (g, m, n,
+                                                lambda t, xa=xa, b=b: add_matmul(xa, b, t))
+        cases[f"add_matmul_packed {g}x{m}x{k}x{n}"] = (
+            g, m, n, lambda t, xa=xa, p=packed: add_matmul_packed(xa, p, t))
+        if not torch.equal(add_matmul_packed(xa, packed), add_matmul(xa, b)):
+            raise AssertionError(f"add_matmul_packed and add_matmul differ on the same codes "
+                                 f"at {g}x{m}x{k}x{n}")
+    launched = {kernel: set() for kernel in ("shift_matmul", "add_matmul", "add_matmul_packed")}
+    for name, (g, m, n, fn) in cases.items():
         want = fn(None)
-        for tile in ((tm, tn) for tm in TILES for tn in TILES):
+        for tile in TILES:
+            launched[name.split()[0]].add(launch_tile(tile, g, m, n, _sms(dev.index or 0)))
             if not torch.equal(fn(tile), want):
                 raise AssertionError(f"{name}: tile {tile} changes the output")
-    if not torch.equal(cases["add_matmul_packed"](None), cases["add_matmul"](None)):
-        raise AssertionError("add_matmul_packed and add_matmul differ on the same codes")
-    log(f"  shift_matmul, add_matmul, add_matmul_packed: all {len(TILES) ** 2} tiles "
-        "bit-identical; packed == int8 operand bit for bit")
+    missing = {k: sorted(set(TILES) - v) for k, v in launched.items() if set(TILES) - v}
+    if missing:
+        raise AssertionError(f"tiles never launched as themselves: {missing}")
+    log(f"  shift_matmul, add_matmul, add_matmul_packed: all {len(TILES)} tiles launched and "
+        f"bit-identical over {len(cases)} cases; packed == int8 operand bit for bit")
 
 
 def check_causal(torch, dev, shapes):
@@ -377,18 +426,21 @@ def seeded_live_params(torch, params, seed):
 def profile_forward(torch, engine, bucket, iters=20):
     """Device time of one forward on a full bucket: (kernels per forward,
     device-busy ms per forward, top kernels as (name, ms, launches) per
-    forward); "not measured" where the profiler recorded nothing."""
+    forward, shift_matmul's (ms, launches) per forward); "not measured"
+    where the profiler recorded nothing."""
     c = engine.model.cfg
     images = torch.randn((bucket, c.image_size, c.image_size, c.in_channels),
                          device=engine.device)
     by_name = kernel_times(torch, lambda: engine.infer(images), iters)
     if not by_name:
-        return "not measured", "not measured", []
+        return "not measured", "not measured", [], "not measured"
     busy_ms = sum(t for t, _ in by_name.values()) / iters / 1e3
     n_kernels = sum(n for _, n in by_name.values()) / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    shift = [(t, n) for name, (t, n) in by_name.items() if "DecodePo2" in name]
+    shift_ms = (sum(t for t, _ in shift) / iters / 1e3, sum(n for _, n in shift) / iters)
     return n_kernels, busy_ms, [(name[:70], t / iters / 1e3, n / iters)
-                                for name, (t, n) in top]
+                                for name, (t, n) in top], shift_ms
 
 
 def serve_arms(torch, dev):
@@ -450,8 +502,9 @@ def serve_arms(torch, dev):
         lat_plain = bucket_latencies(plain, iters=30) if arm != "dense" else None
         profiles = {}
         for b in (1, 32):
-            n_k, busy, top = profile_forward(torch, engine, b)
+            n_k, busy, top, shift = profile_forward(torch, engine, b)
             profiles[b] = {"kernels_per_forward": n_k, "device_busy_ms": busy,
+                           "shift_matmul_ms_launches": shift,
                            "idle_share": (1.0 - busy / (lat[b] * 1e3)
                                           if isinstance(busy, float) and busy > 0
                                           else "not measured"),
@@ -531,8 +584,9 @@ def serve_tuned(torch, dev, table):
         if not torch.equal(o, untuned.infer(r)):
             raise AssertionError(f"tuned logits differ from untuned for a request of "
                                  f"{r.shape[0]}")
+    from repro_torch.kernels.autotune import DEFAULTS
     hits = sum(tuned.plan.tune.lookup("shift_matmul", g=1, m=196 * b, k=128, n=128)
-               != {"tile_m": 64, "tile_n": 64} for b in tuned.buckets)
+               != DEFAULTS["shift_matmul"] for b in tuned.buckets)
     log(f"  tuned vs untuned logits bit-identical over {len(requests)} requests "
         f"({forwards} forwards); {hits} of {len(tuned.buckets)} buckets run a "
         f"non-default q/k/v/o tile")
@@ -584,7 +638,8 @@ def main():
     shift_err = check_shift_matmul(torch, dev, shift_shapes)
     check_row_invariance(torch, dev)
     attn_err = check_attention(torch, dev, [(4, 196, 32, 32), (128, 196, 32, 32),
-                                            (8, 197, 32, 32), (2, 197, 64, 48)])
+                                            (8, 197, 32, 32), (2, 197, 64, 48),
+                                            (8, 196, 256, 256), (2, 300, 256, 200)])
     # add-matmul serving sites ktv (M=32, K=196, N=32) and q_ktv (M=196,
     # K=32, N=32) at G = 4 heads × buckets 1 and 32, and two ragged shapes.
     add_err = check_add_matmuls(torch, dev, [
@@ -592,11 +647,13 @@ def main():
         (3, 70, 300, 200), (1, 1, 8, 640)])
     check_tiles_bit_identical(torch, dev)
     # The causal site at bucket 32 with the default chunk (196) and every
-    # chunk the autotune launches there (64, 128, 256), then ragged shapes.
+    # chunk the autotune launches there (64, 128, 256), ragged shapes, and
+    # head dims 256 and 200 (Dv split into 64-wide slices, the last one
+    # ragged at 200).
     causal_err = check_causal(torch, dev, [
         (128, 196, 32, 32, 196), (128, 196, 32, 32, 64), (128, 196, 32, 32, 128),
         (128, 196, 32, 32, 256), (8, 197, 64, 48, 197), (8, 197, 64, 48, 64),
-        (2, 5000, 64, 64, 256)])
+        (2, 5000, 64, 64, 256), (8, 196, 256, 256, 64), (2, 300, 256, 200, 128)])
 
     log("[3] timing at the bucket-32 shapes")
     timings = {
@@ -612,8 +669,10 @@ def main():
         "binary_linear_attention": time_causal(torch, dev, 128, 196, 32),
     }
     for name, (ms, plain, lib, b, by, _) in timings.items():
-        log(f"  {name}: kernel {ms:.5f} ms, plain {plain:.5f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.5f} ms'}, bound {b:.5f} ms ({by})")
+        log(f"  {name}: kernel {ms:.5f} ms (earlier core: {EARLIER_MS[name]:.5f}), "
+            f"plain {plain:.5f} ms, "
+            f"library {'n/a' if lib is None else f'{lib:.5f} ms'}, bound {b:.5f} ms ({by}), "
+            f"{ms / b:.2f}x bound" + ("" if lib is None else f", {ms / lib:.2f}x library"))
 
     log("[4] serving the three arms at 196 tokens")
     arms = serve_arms(torch, dev)

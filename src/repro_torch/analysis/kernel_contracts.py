@@ -8,10 +8,10 @@ cells, pad waste, findings) is not ported yet.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import bidir_linear_attention, linear_attention, tile_matmul
+from repro_torch.kernels import (SMEM_PER_BLOCK, bidir_linear_attention,
+                                 linear_attention, tile_matmul)
 
 MATMUL_KERNELS = ("shift_matmul", "add_matmul", "add_matmul_packed")
-SMEM_PER_BLOCK = 232448       # 227 KB a Hopper block can opt in to
 THREADS_PER_BLOCK = 1024
 
 
@@ -50,22 +50,25 @@ def serving_sites(cfg, b) -> list:
 
 def block_resources(spec: dict, params: dict) -> tuple:
     """(shared memory bytes, threads) of one block of `spec`'s kernel under
-    the launch parameters `params` (the defaults where a key is missing)."""
+    the launch parameters `params` (the defaults where a key is missing).
+    A matmul's block is counted for float32 x; an attention's at the Dv
+    slice its wrapper takes (the whole of Dv where no slice fits)."""
     kernel = spec["kernel"]
     if kernel in MATMUL_KERNELS:
-        tm = params.get("tile_m", tile_matmul.DEFAULT_TILE[0])
-        tn = params.get("tile_n", tile_matmul.DEFAULT_TILE[1])
-        return tile_matmul.smem_bytes(tm, tn), tile_matmul.THREADS
+        tile = tile_matmul.launch_tile(
+            (params.get("tile_m", tile_matmul.DEFAULT_TILE[0]),
+             params.get("tile_n", tile_matmul.DEFAULT_TILE[1])),
+            spec["g"], spec["m"], spec["n"])
+        return tile_matmul.smem_bytes(tile, spec["k"]), tile_matmul.THREADS
     mod = {"linear_attention": linear_attention,
            "bidir_linear_attention": bidir_linear_attention}[kernel]
-    return mod.smem_bytes(spec["dk"], spec["dv"]), mod.THREADS
+    width = bidir_linear_attention.dv_slice(spec["dk"], spec["dv"], mod.smem_bytes)
+    return mod.smem_bytes(spec["dk"], width or spec["dv"]), mod.THREADS
 
 
 def fits(spec: dict, params: dict) -> bool:
     """Whether one block of this launch fits a Hopper SM: shared memory
-    within 227 KB and threads within 1024 (and head dims within the
-    attention kernels' 128)."""
+    within 227 KB and threads within 1024 (for an attention: some Dv slice
+    fits, `bidir_linear_attention.dv_slice`)."""
     smem, threads = block_resources(spec, params)
-    dims_ok = (max(spec.get("dk", 0), spec.get("dv", 0))
-               <= bidir_linear_attention.MAX_HEAD_DIM)
-    return smem <= SMEM_PER_BLOCK and threads <= THREADS_PER_BLOCK and dims_ok
+    return smem <= SMEM_PER_BLOCK and threads <= THREADS_PER_BLOCK

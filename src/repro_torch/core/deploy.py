@@ -3,9 +3,12 @@ Counterpart of `repro/core/deploy.py`.
 
 Every ShiftLinear subtree is packed to the int8 kernel format (`w_packed`,
 one byte per weight) whichever impl serves it: the CUDA kernel and its plain
-version both read the packed bytes. Packing runs on the CPU and the bytes are
-then moved to the parameters' device, so they are the same bytes on every
-device. Each MoE feed's capacity plan is warmed for the per-image token
+version both read the packed bytes. A subtree arrives as a float latent
+(`w_latent`), already packed, or as the reference's `impl="xla"` freeze
+(`w_deploy`, the decoded s·2^P); every s·2^P with P in range repacks to the
+same byte, so all three give the bytes the reference packs. Packing runs on
+the CPU and the bytes are then moved to the parameters' device, so they are
+the same bytes on every device. Each MoE feed's capacity plan is warmed for the per-image token
 counts the engine serves.
 """
 from __future__ import annotations
@@ -16,15 +19,18 @@ from typing import Any, Tuple
 from repro_torch.core import quant
 
 
+_SHIFT_WEIGHTS = ("w_packed", "w_latent", "w_deploy")
+
+
 def _is_shift_leaf(tree) -> bool:
-    return isinstance(tree, dict) and ("w_latent" in tree or "w_packed" in tree)
+    return isinstance(tree, dict) and any(k in tree for k in _SHIFT_WEIGHTS)
 
 
 def _freeze_shift_leaf(leaf):
     if "w_packed" in leaf:
         out = {"w_packed": leaf["w_packed"]}
     else:
-        w = leaf["w_latent"]
+        w = leaf["w_latent"] if "w_latent" in leaf else leaf["w_deploy"]
         out = {"w_packed": quant.pack_from_dense(w.cpu()).to(w.device)}
     if "bias" in leaf:
         out["bias"] = leaf["bias"]

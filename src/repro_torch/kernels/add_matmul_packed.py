@@ -46,7 +46,7 @@ def add_matmul_packed(x, packed, tile=None):
         raise ValueError(f"no kernel for device {x.device}")
     g, m, k = x.shape
     n = packed.shape[2]
-    tile_matmul.check_grid(g, m, tile)
+    tile_matmul.check_grid(g)
     y = tile_matmul.launch("add_matmul_packed", "add_matmul_packed_launch", x,
                            packed, (g, m, n), (g, m, k, n), tile)
     if y.numel():

@@ -7,9 +7,12 @@ written for the TPU, whose entries say `bm`/`bn`/`bk`/`bk8`/`chunk`, never
 selects a CUDA launch: its lookups serve the defaults):
 
 - shift_matmul, add_matmul, add_matmul_packed: `tile_m`, `tile_n`, the
-  output tile of one block (`tile_matmul.TILES`). The K panel is fixed, so
-  every tile gives bit-identical output: a tuned engine's logits equal the
-  untuned engine's.
+  rows of one M tile and the output columns of one block
+  (`tile_matmul.TILES`). Every tile takes the same K order, so every tile
+  gives bit-identical output: a tuned engine's logits equal the untuned
+  engine's. Tiles that launch alike at a site (a tile shrinks to the
+  product and until its grid covers the SMs, `tile_matmul.launch_tile`)
+  are timed once.
 - linear_attention (the causal kernel): `chunk_rows`, the rows per chunk.
 - bidir_linear_attention: nothing; the tuner only checks that it fits.
 
@@ -36,15 +39,17 @@ import statistics
 import subprocess
 import time
 
+from repro_torch.analysis.kernel_contracts import MATMUL_KERNELS
 from repro_torch.kernels import linear_attention, tile_matmul
 
 SCHEMA_VERSION = 1
 
+_TILE_SPACE = {"tile_m": tuple(sorted({t[0] for t in tile_matmul.TILES})),
+               "tile_n": tuple(sorted({t[1] for t in tile_matmul.TILES}))}
 SEARCH_SPACE = {
-    "shift_matmul": {"tile_m": tile_matmul.TILES, "tile_n": tile_matmul.TILES},
-    "add_matmul": {"tile_m": tile_matmul.TILES, "tile_n": tile_matmul.TILES},
-    "add_matmul_packed": {"tile_m": tile_matmul.TILES,
-                          "tile_n": tile_matmul.TILES},
+    "shift_matmul": _TILE_SPACE,
+    "add_matmul": _TILE_SPACE,
+    "add_matmul_packed": _TILE_SPACE,
     "linear_attention": {"chunk_rows": (64, 128, 256)},
     "bidir_linear_attention": {},
 }
@@ -141,10 +146,20 @@ class TuneTable:
                                     doc.get("meta", {}))
 
 
+def _launch(spec: dict, config: dict):
+    """What a configuration launches at the site: a matmul's tile after
+    `tile_matmul.launch_tile`; any other kernel's configuration as given."""
+    if spec["kernel"] not in MATMUL_KERNELS:
+        return tuple(sorted(config.items()))
+    return tile_matmul.launch_tile((config["tile_m"], config["tile_n"]),
+                                   spec["g"], spec["m"], spec["n"])
+
+
+
 def candidates(spec: dict) -> list:
-    """Every launch configuration of the site's kernel that fits a Hopper
-    block, the default first (dicts; [{}] for a kernel with nothing to
-    tune)."""
+    """Every launch configuration of the site's kernel that is built and
+    fits a Hopper block, the default first, one per distinct launch (dicts;
+    [{}] for a kernel with nothing to tune)."""
     from repro_torch.analysis import kernel_contracts as kc
 
     kernel = spec["kernel"]
@@ -153,7 +168,19 @@ def candidates(spec: dict) -> list:
     combos = [dict(zip(keys, vals))
               for vals in itertools.product(*(space[k] for k in keys))]
     combos.sort(key=lambda c: c != DEFAULTS[kernel])
-    return [c for c in combos if kc.fits(spec, c)]
+    seen, out = set(), []
+    for c in combos:
+        if _valid(kernel, c) and kc.fits(spec, c) and _launch(spec, c) not in seen:
+            seen.add(_launch(spec, c))
+            out.append(c)
+    return out
+
+
+def _valid(kernel: str, params: dict) -> bool:
+    """A matmul's (tile_m, tile_n) pair is one the header builds."""
+    if kernel not in MATMUL_KERNELS or not {"tile_m", "tile_n"} <= set(params):
+        return True
+    return (params["tile_m"], params["tile_n"]) in tile_matmul.TILES
 
 
 def _site_geometry(spec: dict) -> dict:
@@ -395,8 +422,11 @@ def _usable(table: TuneTable) -> bool:
     `bm`, `bk8`, `chunk`, ...) are left alone: their lookups serve the
     defaults."""
     for key, params in table.entries:
-        space = SEARCH_SPACE.get(key.split("|")[0], {})
+        kernel = key.split("|")[0]
+        space = SEARCH_SPACE.get(kernel, {})
         if any(p in space and c not in space[p] for p, c in params):
+            return False
+        if not _valid(kernel, dict(params)):
             return False
     return True
 

@@ -12,6 +12,9 @@
 // used 32 times, far below the ~295 bf16 operations per byte at which the
 // tensor cores become the limit. The code moves at one byte and becomes an
 // exact bf16 +-1 or 0 in shared memory; a zero contributes exactly nothing.
+// At ktv (M = 32) the tile shrinks to the product: one block per
+// batch*head brings its whole K extent in with one barrier
+// (tile_matmul.cuh).
 // The C function returns cudaGetLastError() after the launch.
 
 #include "tile_matmul.cuh"
@@ -20,19 +23,22 @@ namespace {
 
 struct DecodeSign {
   static constexpr bool kBatched = true;
-  static __device__ __forceinline__ __nv_bfloat16 load(const void* b, int64_t g, int gk, int gn,
-                                                       int K, int N) {
-    const int8_t v =
-        __ldg(static_cast<const int8_t*>(b) + (g * K + gk) * static_cast<int64_t>(N) + gn);
-    return __float2bfloat16_rn(static_cast<float>(v));
+  static constexpr int kRows = 1;
+  // Every int8 value is an exact bf16.
+  static __device__ __forceinline__ void decode4(uint32_t w, uint2 (&out)[1]) {
+    const auto v = [w](int i) { return static_cast<float>(static_cast<int8_t>(w >> (8 * i))); };
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v(0), v(1));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v(2), v(3));
+    out[0] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                        *reinterpret_cast<const uint32_t*>(&hi));
   }
 };
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y share it). Row-major, contiguous
-// x (G, M, K), b (G, K, N) int8, y (G, M, N); tile_m, tile_n in {32, 64, 128}.
-// Returns the launch's cudaError_t.
+// x (G, M, K), b (G, K, N) int8, y (G, M, N); (tile_m, tile_n) one of the
+// shapes tile_matmul.cuh builds. Returns the launch's cudaError_t.
 extern "C" int add_matmul_launch(const void* x, const void* b, void* y, int G, int M, int K,
                                  int N, int dtype, int tile_m, int tile_n, void* stream) {
   return tile_matmul::launch<DecodeSign>(x, b, y, G, M, K, N, dtype, tile_m, tile_n, stream);

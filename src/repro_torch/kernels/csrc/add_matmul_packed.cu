@@ -9,8 +9,9 @@
 // (tile_matmul.cuh), so no padding is ever decoded. K is always 8 K8.
 //
 // What bounds it on an H100: memory, as for add_matmul; the code moves at one
-// bit (8x fewer bytes than int8) and is decoded with a shift and a mask into
-// an exact bf16 +-1 in shared memory.
+// bit (8x fewer bytes than int8) and is decoded with shifts and byte
+// permutes into exact bf16 +-1 in shared memory: one stored byte row gives 8
+// rows of B.
 // The C function returns cudaGetLastError() after the launch.
 
 #include "tile_matmul.cuh"
@@ -19,12 +20,16 @@ namespace {
 
 struct DecodeBit {
   static constexpr bool kBatched = true;
-  static __device__ __forceinline__ __nv_bfloat16 load(const void* p, int64_t g, int gk, int gn,
-                                                       int K, int N) {
-    const int64_t k8 = K / 8;
-    const int64_t row = g * k8 + (gk >> 3);
-    const unsigned byte = __ldg(static_cast<const uint8_t*>(p) + row * N + gn);
-    return __float2bfloat16_rn(((byte >> (gk & 7)) & 1u) ? 1.0f : -1.0f);
+  static constexpr int kRows = 8;
+  // Row r of the byte row takes bit r of each byte: set gives +1 (0x3F80),
+  // clear gives -1 (0xBF80), so the bit flips bf16 -1's sign bit.
+  static __device__ __forceinline__ void decode4(uint32_t w, uint2 (&out)[8]) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const uint32_t bits = (w >> r) & 0x01010101u;
+      out[r] = make_uint2(0xBF80BF80u ^ (__byte_perm(bits, 0, 0x4140) << 15),
+                          0xBF80BF80u ^ (__byte_perm(bits, 0, 0x4342) << 15));
+    }
   }
 };
 
@@ -32,7 +37,8 @@ struct DecodeBit {
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y share it). Row-major, contiguous
 // x (G, M, K), packed (G, K / 8, N) uint8, y (G, M, N); K must be a multiple
-// of 8; tile_m, tile_n in {32, 64, 128}. Returns the launch's cudaError_t.
+// of 8; (tile_m, tile_n) one of the shapes tile_matmul.cuh builds. Returns
+// the launch's cudaError_t.
 extern "C" int add_matmul_packed_launch(const void* x, const void* packed, void* y, int G, int M,
                                         int K, int N, int dtype, int tile_m, int tile_n,
                                         void* stream) {

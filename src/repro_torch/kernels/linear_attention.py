@@ -3,7 +3,10 @@ the wrapper of the hand-written CUDA kernel `csrc/linear_attention.cu`.
 
 Replaces the reference's Pallas kernel `binary_linear_attention_pallas`
 (repro/kernels/linear_attention.py). Unlike it, N is not padded to the chunk
-(the kernel stops at the last row) and the head dims are not padded. On a
+(the kernel stops at the last row) and the head dims are not padded; head
+dims above 128 run with Dv split across blocks
+(`bidir_linear_attention.dv_slice` with this kernel's `smem_bytes`: Dk up to
+774, any Dv). On a
 CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version (`ref.binary_linear_attention_ref`, the quadratic
 oracle, and `ref.binary_linear_attention_state_ref`).
@@ -23,18 +26,19 @@ SUB_TILE = 32      # row sub-tile of csrc/linear_attention.cu
 THREADS = 256
 
 
-def smem_bytes(dk: int, dv: int) -> int:
-    """Shared memory of one block: the carry (KV, ksum, vsum) and the
-    sub-tiles of query codes, key codes, values, scores and sums."""
+def smem_bytes(dk: int, dvs: int) -> int:
+    """Shared memory of one block with a slice of `dvs` columns of v: the
+    carry (KV slice, ksum, vsum slice) and the sub-tiles of query codes, key
+    codes, values, scores and sums."""
     r = SUB_TILE
-    return 4 * (dk * dv + dk + dv + r * (2 * dk + 2 * dv) + r * r + r)
+    return 4 * (dk * dvs + dk + dvs + r * (2 * dk + 2 * dvs) + r * r + r)
 
 
 def binary_linear_attention(q, k, v, chunk=CHUNK, return_state=False):
     """q, k: (G, N, Dk); v: (G, N, Dv), float32; causal, each row sees
     itself → out (G, N, Dv) float32, and with return_state also the final
     carry kv (G, Dk, Dv), ksum (G, Dk), vsum (G, Dv) in float32."""
-    check_args(q, k, v)
+    width = check_args(q, k, v, smem_bytes)
     chunk = int(chunk)
     if chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
@@ -49,7 +53,7 @@ def binary_linear_attention(q, k, v, chunk=CHUNK, return_state=False):
     from repro_torch.kernels import build
 
     fn = build.load("linear_attention").binary_linear_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     g, n, dk = q.shape
     dv = v.shape[-1]
@@ -62,7 +66,7 @@ def binary_linear_attention(q, k, v, chunk=CHUNK, return_state=False):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
-                 g, n, dk, dv, chunk, stream)
+                 g, n, dk, dv, chunk, width, stream)
     if err != 0:
         raise RuntimeError(
             f"binary_linear_attention kernel launch failed: CUDA error {err}")

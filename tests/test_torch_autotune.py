@@ -131,12 +131,16 @@ def test_unmeasured_autotune_keys_every_tunable_site(name):
 def test_candidates_fit_a_hopper_block():
     spec = kc.serving_sites(ViTConfig(image_size=56), 32)[0]
     cands = at.candidates(spec)
-    assert len(cands) == 9 and cands[0] == at.DEFAULTS["shift_matmul"]
+    # 11 tiles; at 6272 x 128 x 128, (16, 256) and (32, 256) launch as
+    # (16, 128) and (32, 128), and (64, 128) as (64, 64) to cover the SMs.
+    assert len(cands) == 8 and cands[0] == at.DEFAULTS["shift_matmul"]
+    assert len({at._launch(spec, c) for c in cands}) == 8
     assert all(kc.block_resources(spec, c)[0] <= kc.SMEM_PER_BLOCK for c in cands)
     causal = dict(kernel="linear_attention", site="causal_attn", g=1, n=8,
                   dk=128, dv=128)
     assert [c["chunk_rows"] for c in at.candidates(causal)] == [256, 64, 128]
-    assert at.candidates(dict(causal, dk=256)) == []
+    assert [c["chunk_rows"] for c in at.candidates(dict(causal, dk=256))] == [256, 64, 128]
+    assert at.candidates(dict(causal, dk=775)) == [], "no Dv slice fits past Dk 774"
 
 
 def _engine_pair():
@@ -153,7 +157,7 @@ def test_tuned_cpu_engine_logits_equal_untuned():
     table, _ = at.autotune(cfg, buckets=(1, 8), measure=False, device="cpu")
     odd = at.TuneTable.from_dicts(
         {k: ({"chunk_rows": 64} if k.startswith("linear") else
-             {"tile_m": 128, "tile_n": 32}) for k, _ in table.entries})
+             {"tile_m": 64, "tile_n": 32}) for k, _ in table.entries})
     images = torch.randn((5, 16, 16, 3), generator=torch.Generator().manual_seed(3))
     want = BucketedViTEngine(model, params, buckets=(1, 8), device="cpu",
                              impl="cuda").infer(images)

@@ -8,8 +8,9 @@ kernel has no CPU mode). Run on a machine with the card and nvcc:
 Tolerances are the reference kernel tests' scaled error: < 2e-2 for the
 matmuls (`shift_matmul`, `add_matmul`, `add_matmul_packed`: bf16 products,
 float32 sums in another order) and < 1e-3 for the attentions (float32
-throughout). Every tile shape of a matmul gives the same bits (the K panel is
-fixed), which the tile tests hold exactly. This file imports no JAX, so it
+throughout). Every tile shape of a matmul gives the same bits (every output
+element is the same chain of tensor-core steps in K order), which the tile
+tests hold exactly. This file imports no JAX, so it
 runs where only the port is installed."""
 import pytest
 
@@ -39,7 +40,7 @@ CAUSAL_SHAPES = [(1, 128, 16, 16, 128), (4, 256, 64, 64, 128),
                  (2, 300, 24, 20, 128), (128, 196, 32, 32, 196),
                  (8, 197, 64, 48, 64), (2, 5000, 64, 64, 256), (1, 1, 8, 8, 256),
                  (2, 7, 32, 16, 64), (1, 100, 16, 16, 1)]
-ALL_TILES = [(tm, tn) for tm in TILES for tn in TILES]
+ALL_TILES = list(TILES)
 BIDIR_SHAPES = [(2, 64, 32, 32), (4, 197, 64, 48), (3, 196, 80, 80),
                 (2, 8, 16, 16), (128, 196, 32, 32), (1, 33, 7, 5),
                 (1, 5000, 128, 128)]
@@ -117,10 +118,35 @@ def test_cuda_impl_on_cuda_tensors_launches(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_rejects_oversized_head_dim(cuda):
-    q = torch.zeros((1, 4, 129), device=cuda)
-    with pytest.raises(ValueError):
-        tbidir.bidir_binary_attention(q, q, q)
+@pytest.mark.parametrize("g,n", [(2, 197), (1, 1000)])
+def test_attention_kernels_at_head_dim_256(cuda, g, n):
+    """Dk = Dv = 256: the KV is split into 64-wide Dv slices, one block each;
+    both kernels hold their plain versions, the causal one with its carry
+    (ksum exact), and repeat bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 256)
+    q, k, v = (torch.randn((g, n, 256), generator=gen, device=cuda) for _ in range(3))
+    got = tbidir.bidir_binary_attention(q, k, v)
+    assert scaled_error(got, ref.bidir_binary_attention_ref(q, k, v)) < 1e-3
+    assert torch.equal(tbidir.bidir_binary_attention(q, k, v), got)
+    out, kv, ksum, vsum = tcausal.binary_linear_attention(q, k, v, 128, return_state=True)
+    st = ref.binary_linear_attention_state_ref(q, k, v)
+    assert scaled_error(out, ref.binary_linear_attention_ref(q, k, v)) < 1e-3
+    assert scaled_error(kv, st["kv"]) < 1e-3 and scaled_error(vsum, st["vsum"]) < 1e-3
+    assert torch.equal(ksum, st["ksum"])
+    assert torch.equal(tcausal.binary_linear_attention(q, k, v, 128), out)
+
+
+@pytest.mark.gpu
+def test_kernels_reject_head_dims_past_their_limit(cuda):
+    """Only a Dk at which no Dv slice fits a block is refused."""
+    v = torch.zeros((1, 4, 8), device=cuda)
+    for fn, smem in ((tbidir.bidir_binary_attention, tbidir.smem_bytes),
+                     (tcausal.binary_linear_attention, tcausal.smem_bytes)):
+        limit = tbidir.max_dk(smem)
+        fn(*(torch.zeros((1, 4, limit), device=cuda),) * 2, v)
+        big = torch.zeros((1, 4, limit + 1), device=cuda)
+        with pytest.raises(ValueError, match=f"Dk up to {limit}"):
+            fn(big, big, v)
 
 
 def _signs(gen, shape, dev, zeros=False):
@@ -132,7 +158,7 @@ def _signs(gen, shape, dev, zeros=False):
 @pytest.mark.gpu
 def test_shift_matmul_every_tile_bit_identical(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
-    for m, k, n in ((6272, 128, 128), (197, 300, 200), (1, 64, 640)):
+    for m, k, n in ((6272, 128, 128), (197, 300, 200), (1, 64, 640), (4256, 256, 256)):
         wp = _packed(g, k, n, cuda)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
@@ -164,6 +190,19 @@ def test_add_matmul_zeros_contribute_nothing(cuda):
     assert torch.equal(tadd.add_matmul(x, torch.zeros((2, 70, 9), dtype=torch.int8,
                                                       device=cuda)),
                        torch.zeros((2, 40, 9), device=cuda))
+
+
+@pytest.mark.gpu
+def test_add_matmul_batch_entry_independent_of_g(cuda):
+    """Batch·head g alone gives the bits it gets among G = 128."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for m, k, n in ((32, 196, 32), (196, 32, 32)):
+        x = torch.randn((128, m, k), generator=gen, device=cuda)
+        b = _signs(gen, (128, k, n), cuda)
+        full = tadd.add_matmul(x, b)
+        for i in (0, 77, 127):
+            assert torch.equal(tadd.add_matmul(x[i:i + 1].contiguous(),
+                                               b[i:i + 1].contiguous())[0], full[i])
 
 
 @pytest.mark.gpu
@@ -265,4 +304,4 @@ def test_autotune_times_each_site_by_either_method(cuda, monkeypatch):
         assert how == autotune.GRAPH and all(0 < t < 10 for t in ms), spec
         # Two warm-up calls, then per config one call before capture and
         # 5 launches in each of 1 + 5 replays; the capture itself counts none.
-        assert ops.launch_counts()[name] - before == 2 + 2 * (1 + 5 * 6), spec
+        assert ops.launch_counts()[name] - before == 2 + len(configs) * (1 + 5 * 6), spec

@@ -118,8 +118,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tshift.shift_matmul(torch.zeros(8, 4).t(), wp)
     q = torch.zeros(2, 5, 8)
-    with pytest.raises(ValueError):
-        tbidir.bidir_binary_attention(q, q, torch.zeros(2, 5, 129))
+    big = torch.zeros(2, 5, tbidir.max_dk() + 1)      # no Dv slice fits past it
+    with pytest.raises(ValueError, match=f"Dk up to {tbidir.max_dk()}"):
+        tbidir.bidir_binary_attention(big, big, q)
     with pytest.raises(TypeError):
         tbidir.bidir_binary_attention(q, q.double(), q)
     with pytest.raises(ValueError):

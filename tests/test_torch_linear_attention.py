@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import bidir_linear_attention as tbidir  # noqa: E402
 from repro_torch.kernels import linear_attention as tcausal  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.parity import scaled_error  # noqa: E402
@@ -94,8 +95,10 @@ def test_codes_zero_and_nan_like_reference():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(2, 5, 8)
-    with pytest.raises(ValueError):
-        tcausal.binary_linear_attention(q, q, torch.zeros(2, 5, 129))
+    limit = tbidir.max_dk(tcausal.smem_bytes)            # 774: no Dv slice fits past it
+    big = torch.zeros(2, 5, limit + 1)
+    with pytest.raises(ValueError, match=f"Dk up to {limit}"):
+        tcausal.binary_linear_attention(big, big, q)
     with pytest.raises(TypeError):
         tcausal.binary_linear_attention(q, q.double(), q)
     with pytest.raises(ValueError):
@@ -103,3 +106,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = ops.launch_counts()
     tcausal.binary_linear_attention(q, q, q, return_state=True)
     assert ops.launch_counts() == before, "the plain version counts no launch"
+
+
+@pytest.mark.parametrize("b,h,n", [(1, 2, 33), (2, 1, 70)])
+def test_head_dim_256_matches_reference(b, h, n):
+    """Dk = Dv = 256, over the 128 a single block's KV used to take: both
+    kernel wrappers accept it (Dv split into 64-wide slices on the card) and,
+    on CPU tensors, pass it to their plain versions. Bidirectional and causal
+    with the final carry, against the reference in interpret mode; ksum
+    exact."""
+    dk = dv = 256
+    assert tbidir.dv_slice(dk, dv) == 64
+    assert tbidir.dv_slice(dk, dv, tcausal.smem_bytes) == 64
+    q, k, v = _qkv(n + 256, b, h, n, dk, dv)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want = np.asarray(jops.binary_linear_attention_bidir(jq, jk, jv, impl="interpret"))
+    got = ops.binary_linear_attention_bidir(tq, tk, tv, impl="cuda")
+    assert tuple(got.shape) == (b, h, n, dv)
+    assert scaled_error(got, want) < 1e-3
+    want_out, want_st = jops.binary_linear_attention_fused(
+        jq, jk, jv, chunk=32, impl="interpret", return_state=True)
+    out, state = ops.binary_linear_attention_fused(tq, tk, tv, impl="cuda",
+                                                   return_state=True)
+    assert scaled_error(out, np.asarray(want_out)) < 1e-3
+    assert tuple(state["kv"].shape) == (b, h, dk, dv)
+    assert scaled_error(state["kv"], np.asarray(want_st["kv"])) < 1e-3
+    assert scaled_error(state["vsum"], np.asarray(want_st["vsum"])) < 1e-3
+    np.testing.assert_array_equal(state["ksum"].numpy(), np.asarray(want_st["ksum"]))
