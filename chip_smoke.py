@@ -6,14 +6,18 @@ d_model 128, 4 layers, 4 heads) and checks what comes out:
 - [1] build the five kernel sources (one nvcc each, in parallel);
 - [2] each kernel against its plain version at the serving shapes and at
   ragged ones, the attentions also at head dim 256 (Dv split across
-  blocks); every tile of the three matmuls bit-identical, a row of
-  shift_matmul and a batch entry of add_matmul the same bits alone as
-  among all;
-- [3] device time of each kernel at its bucket-32 shape beside its time
-  with the first tiled matmul core, its bound, its plain version and, where
-  one exists, one PyTorch call's time;
+  blocks) and at N = 5000; every tile of the three matmuls bit-identical, a
+  row of shift_matmul and a batch entry of add_matmul the same bits alone
+  as among all; a batch·head of the bidirectional attention the same bits
+  alone, among G = 4 and among G = 128, on strided projection views as on
+  contiguous copies, and at every Dv slice width;
+- [3] device time of each kernel at its bucket-32 shape (the bidirectional
+  attention also at bucket 1, G = 4) beside its time before its last
+  redesign, its bound, its plain version and, where one exists, one PyTorch
+  call's time;
 - [4] serving the frozen ShiftAddViT through the bucketed engine for the
-  dense, stage1 and shiftadd arms;
+  dense, stage1 and shiftadd arms, with kernels and attention launches per
+  forward from a profiler trace;
 - [5] the autotune entry point: every serving site × bucket (1, 8, 32),
   every launch configuration timed on the card, the table written to
   build/TUNE_kernels_torch.json;
@@ -56,15 +60,18 @@ ATTN_TOL = 1e-3       # scaled error, float32 throughout (both attentions)
 # than rounding, so the bound is the kernel tolerance, not float32 noise.
 ENGINE_TOL = 2e-2
 REQUEST_SIZES = (1, 5, 32, 40)
-# Device ms per launch of each kernel at the phase-[3] shapes with the
-# first tiled matmul core (WMMA, before its redesign for Hopper): this
-# script's run on an NVIDIA H100 80GB HBM3 at 700.00 W, recorded in PERF.md,
-# printed beside each new time.
+# Device ms per launch of each kernel at the phase-[3] shapes before its
+# last redesign, printed beside each new time: the matmuls and the causal
+# attention with the first tiled matmul core era's kernels (WMMA), the
+# bidirectional attention with its one-block-per-batch·head kernel (the
+# G = 128 time of the third slice's run); this script's runs on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, recorded in PERF.md. None: never measured.
 EARLIER_MS = {"shift_matmul": 0.01463546, "shift_matmul up": 0.01544,
-           "shift_matmul down": 0.02546, "bidir_binary_attention": 0.04518494,
-           "add_matmul": 0.01867232, "add_matmul q_ktv": 0.00719,
-           "add_matmul_packed": 0.01797008, "add_matmul_packed q_ktv": 0.00746,
-           "binary_linear_attention": 0.19065472}
+              "shift_matmul down": 0.02546, "bidir_binary_attention": 0.04558,
+              "bidir_binary_attention G=4": None,
+              "add_matmul": 0.01867232, "add_matmul q_ktv": 0.00719,
+              "add_matmul_packed": 0.01797008, "add_matmul_packed q_ktv": 0.00746,
+              "binary_linear_attention": 0.19065472}
 
 
 def log(*a):
@@ -182,6 +189,8 @@ def check_row_invariance(torch, dev):
 
 
 def check_attention(torch, dev, shapes):
+    """The bidirectional kernel against its plain version at every shape,
+    run to run identical; returns the max abs error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bidir_linear_attention import bidir_binary_attention
     from repro_torch.parity import scaled_error
@@ -198,7 +207,62 @@ def check_attention(torch, dev, shapes):
         log(f"  bidir_binary_attention G={gg} N={n} Dk={dk} Dv={dv}: scaled err {err:.3e}")
         if not err < ATTN_TOL:
             raise AssertionError(f"attention {gg}x{n}x{dk}x{dv}: {err} >= {ATTN_TOL}")
+        if not torch.equal(bidir_binary_attention(q, k, v), got):
+            raise AssertionError(f"attention {gg}x{n}x{dk}x{dv}: differs between runs")
         worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def check_attention_invariance(torch, dev):
+    """The bidirectional kernel's invariants: batch·heads 0, 77 and 127 give
+    the same bits alone (G = 1), among G = 4 and among G = 128; the
+    (B, H, N, D) views of (B, N, H·D) projections give the bits of
+    contiguous copies, within ATTN_TOL of the plain version, and the output
+    is a view of a (B, N, H, D) buffer; at Dk = 256 every Dv slice width
+    gives the same bits. Returns the max abs error of the strided runs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bidir_linear_attention import bidir_binary_attention, dv_slice
+    from repro_torch.parity import scaled_error
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn((128, 196, 32), generator=g, device=dev) for _ in range(3))
+    full = bidir_binary_attention(q, k, v)
+    pick = [0, 77, 127, 5]
+    four = bidir_binary_attention(*(t[pick].contiguous() for t in (q, k, v)))
+    for j, i in enumerate(pick[:3]):
+        one = bidir_binary_attention(*(t[i:i + 1].contiguous() for t in (q, k, v)))
+        if not (torch.equal(one[0], full[i]) and torch.equal(four[j], full[i])):
+            raise AssertionError(f"attention: batch·head {i} differs alone, among G=4 "
+                                 "and among G=128")
+    log("  bidir_binary_attention batch·heads 0, 77, 127: bit-identical alone, among G=4 "
+        "and among G=128")
+    worst = 0.0
+    for b, n, h, d in ((1, 196, 4, 32), (32, 196, 4, 32), (2, 197, 3, 48), (1, 70, 2, 7)):
+        qv, kv, vv = (torch.randn((b, n, h * d), generator=g, device=dev)
+                      .reshape(b, n, h, d).permute(0, 2, 1, 3) for _ in range(3))
+        got = bidir_binary_attention(qv, kv, vv)
+        flat = bidir_binary_attention(*(t.reshape(b * h, n, d).contiguous()
+                                        for t in (qv, kv, vv)))
+        want = ref.bidir_binary_attention_ref(qv, kv, vv)
+        torch.cuda.synchronize()
+        err = scaled_error(got, want)
+        if not (torch.equal(got.reshape(b * h, n, d), flat) and err < ATTN_TOL
+                and got.permute(0, 2, 1, 3).is_contiguous()):
+            raise AssertionError(f"attention views B={b} N={n} H={h} D={d}: err {err}, "
+                                 "or bits differ from contiguous copies")
+        worst = max(worst, float((got - want).abs().max()))
+    log(f"  bidir_binary_attention on projection views (B, H, N, D): bit-identical to "
+        f"contiguous copies, max abs err {worst:.3e}")
+    for dv in (256, 200):
+        q, k = (torch.randn((2, 197, 256), generator=g, device=dev) for _ in range(2))
+        v = torch.randn((2, 197, dv), generator=g, device=dev)
+        want = bidir_binary_attention(q, k, v)
+        for width in (32, 16, 8, 24, 10):
+            if not torch.equal(bidir_binary_attention(q, k, v, width), want):
+                raise AssertionError(f"attention Dv={dv}: slice {width} changes the output "
+                                     f"(default {dv_slice(256, dv)})")
+    log("  bidir_binary_attention Dk=256, Dv=256 and 200: slices 64 (default), 32, 16, 8, "
+        "24, 10 bit-identical")
     return worst
 
 
@@ -426,21 +490,24 @@ def seeded_live_params(torch, params, seed):
 def profile_forward(torch, engine, bucket, iters=20):
     """Device time of one forward on a full bucket: (kernels per forward,
     device-busy ms per forward, top kernels as (name, ms, launches) per
-    forward, shift_matmul's (ms, launches) per forward); "not measured"
-    where the profiler recorded nothing."""
+    forward, shift_matmul's and the bidirectional attention's (ms,
+    launches) per forward); "not measured" where the profiler recorded
+    nothing."""
     c = engine.model.cfg
     images = torch.randn((bucket, c.image_size, c.image_size, c.in_channels),
                          device=engine.device)
     by_name = kernel_times(torch, lambda: engine.infer(images), iters)
     if not by_name:
-        return "not measured", "not measured", [], "not measured"
+        return "not measured", "not measured", [], "not measured", "not measured"
     busy_ms = sum(t for t, _ in by_name.values()) / iters / 1e3
     n_kernels = sum(n for _, n in by_name.values()) / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     shift = [(t, n) for name, (t, n) in by_name.items() if "DecodePo2" in name]
     shift_ms = (sum(t for t, _ in shift) / iters / 1e3, sum(n for _, n in shift) / iters)
+    attn = [(t, n) for name, (t, n) in by_name.items() if "bidir_binary_attention" in name]
+    attn_ms = (sum(t for t, _ in attn) / iters / 1e3, sum(n for _, n in attn) / iters)
     return n_kernels, busy_ms, [(name[:70], t / iters / 1e3, n / iters)
-                                for name, (t, n) in top], shift_ms
+                                for name, (t, n) in top], shift_ms, attn_ms
 
 
 def serve_arms(torch, dev):
@@ -502,9 +569,15 @@ def serve_arms(torch, dev):
         lat_plain = bucket_latencies(plain, iters=30) if arm != "dense" else None
         profiles = {}
         for b in (1, 32):
-            n_k, busy, top, shift = profile_forward(torch, engine, b)
+            n_k, busy, top, shift, attn = profile_forward(torch, engine, b)
+            if attn != "not measured" and attn[1] != expected[arm][1]:
+                raise AssertionError(f"{arm} bucket {b}: {attn[1]} attention kernels per "
+                                     f"forward in the trace, expected {expected[arm][1]}")
+            log(f"  {arm} bucket {b}: {n_k} kernels per forward, device busy {busy} ms, "
+                f"attention (ms, launches) per forward {attn}")
             profiles[b] = {"kernels_per_forward": n_k, "device_busy_ms": busy,
                            "shift_matmul_ms_launches": shift,
+                           "attention_ms_launches": attn,
                            "idle_share": (1.0 - busy / (lat[b] * 1e3)
                                           if isinstance(busy, float) and busy > 0
                                           else "not measured"),
@@ -637,9 +710,13 @@ def main():
     shift_shapes += [(197, 128, 128), (70, 300, 200), (1, 64, 640)]
     shift_err = check_shift_matmul(torch, dev, shift_shapes)
     check_row_invariance(torch, dev)
+    # The serving shapes at buckets 1 and 32, ragged ones, head dims 256 and
+    # 200 (Dv split into slices) and a long N (each block walks 625 rows).
     attn_err = check_attention(torch, dev, [(4, 196, 32, 32), (128, 196, 32, 32),
                                             (8, 197, 32, 32), (2, 197, 64, 48),
-                                            (8, 196, 256, 256), (2, 300, 256, 200)])
+                                            (8, 196, 256, 256), (2, 300, 256, 200),
+                                            (2, 5000, 64, 64)])
+    attn_err = max(attn_err, check_attention_invariance(torch, dev))
     # add-matmul serving sites ktv (M=32, K=196, N=32) and q_ktv (M=196,
     # K=32, N=32) at G = 4 heads × buckets 1 and 32, and two ragged shapes.
     add_err = check_add_matmuls(torch, dev, [
@@ -661,6 +738,7 @@ def main():
         "shift_matmul up": time_shift_matmul(torch, dev, 4256, 128, 256),
         "shift_matmul down": time_shift_matmul(torch, dev, 4256, 256, 128),
         "bidir_binary_attention": time_attention(torch, dev, 128, 196, 32),
+        "bidir_binary_attention G=4": time_attention(torch, dev, 4, 196, 32),
         "add_matmul": time_add_matmul(torch, dev, 128, 32, 196, 32),
         "add_matmul q_ktv": time_add_matmul(torch, dev, 128, 196, 32, 32),
         "add_matmul_packed": time_add_matmul(torch, dev, 128, 32, 200, 32, packed=True),
@@ -669,7 +747,9 @@ def main():
         "binary_linear_attention": time_causal(torch, dev, 128, 196, 32),
     }
     for name, (ms, plain, lib, b, by, _) in timings.items():
-        log(f"  {name}: kernel {ms:.5f} ms (earlier core: {EARLIER_MS[name]:.5f}), "
+        earlier = EARLIER_MS[name]
+        log(f"  {name}: kernel {ms:.5f} ms (before its redesign: "
+            f"{'not measured' if earlier is None else f'{earlier:.5f}'}), "
             f"plain {plain:.5f} ms, "
             f"library {'n/a' if lib is None else f'{lib:.5f} ms'}, bound {b:.5f} ms ({by}), "
             f"{ms / b:.2f}x bound" + ("" if lib is None else f", {ms / lib:.2f}x library"))
@@ -713,12 +793,16 @@ def main():
         ms, plain, lib, b, by, how = timings[name]
         by_path = {"serving [4]": serving.get(name, 0), "autotune [5]": tune_launches[name],
                    "tuned serving [6]": tuned_launches[name]}
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": b, "bound_by": by, "library_ms": lib,
-                        "timing": how, "shape": shape})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b, "bound_by": by, "library_ms": lib,
+               "timing": how, "shape": shape}
+        if name == "bidir_binary_attention":       # also at bucket 1
+            ms4, plain4, _, b4, _, _ = timings["bidir_binary_attention G=4"]
+            row.update(ms_g4=ms4, plain_ms_g4=plain4, bound_ms_g4=b4)
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

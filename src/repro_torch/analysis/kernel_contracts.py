@@ -52,7 +52,9 @@ def block_resources(spec: dict, params: dict) -> tuple:
     """(shared memory bytes, threads) of one block of `spec`'s kernel under
     the launch parameters `params` (the defaults where a key is missing).
     A matmul's block is counted for float32 x; an attention's at the Dv
-    slice its wrapper takes (the whole of Dv where no slice fits)."""
+    slice its wrapper takes (the whole of Dv where no slice fits); the
+    bidirectional attention's block is one of a cluster of
+    `bidir_linear_attention.cluster_size(n)`."""
     kernel = spec["kernel"]
     if kernel in MATMUL_KERNELS:
         tile = tile_matmul.launch_tile(

@@ -105,19 +105,22 @@ def binary_linear_attention_bidir(q, k, v, impl=None, tune=None):
     """q, k: (B, H, N, Dk); v: (B, H, N, Dv), float32 → (B, H, N, Dv).
     Non-causal: the ViT serving form of the Hamming-code attention. `tune`
     is accepted for call-site uniformity and ignored: the kernel has no
-    launch parameter to tune (the autotuner only checks that it fits)."""
+    launch parameter to tune (the autotuner only checks that it fits).
+
+    impl="cuda" hands the kernel q, k and v as they are (any batch, head and
+    row strides, the last dim contiguous, as `Attention._qkv`'s permuted
+    views) and returns its (B, H, N, Dv) view of a (B, N, H, Dv) buffer: no
+    layout copy on either side."""
     del tune
     impl = _resolve(impl, q)
+    if impl == "cuda":
+        return bidir_binary_attention(q, k, v)
     b, h, n, dk = q.shape
     dv = v.shape[-1]
     qg = q.reshape(b * h, n, dk).contiguous()
     kg = k.reshape(b * h, n, dk).contiguous()
     vg = v.reshape(b * h, n, dv).contiguous()
-    if impl == "torch":
-        out = ref.bidir_binary_attention_ref(qg, kg, vg)
-    else:
-        out = bidir_binary_attention(qg, kg, vg)
-    return out.reshape(b, h, n, dv)
+    return ref.bidir_binary_attention_ref(qg, kg, vg).reshape(b, h, n, dv)
 
 
 def binary_linear_attention_fused(q, k, v, *, chunk=None, impl=None,

@@ -92,5 +92,6 @@ class Attention:
             out = ops.binary_linear_attention_bidir(
                 q.float(), kf.float(), vf.float(), impl=impl,
                 tune=tune).to(x.dtype)
+        # The kernel's output is a view of a (B, N, H, Dh) buffer: no copy.
         out = out.permute(0, 2, 1, 3).reshape(b, n, self.h * self.dh)
         return L.call_linear(self.o_proj, params["o"], out, impl, tune)

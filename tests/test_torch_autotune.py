@@ -19,6 +19,7 @@ from repro.nn.vit import ViTConfig as JViTConfig  # noqa: E402
 from repro_torch.analysis import kernel_contracts as kc  # noqa: E402
 from repro_torch.core.policy import DENSE  # noqa: E402
 from repro_torch.kernels import autotune as at  # noqa: E402
+from repro_torch.kernels import bidir_linear_attention as tbidir  # noqa: E402
 from repro_torch.launch import autotune as at_cli  # noqa: E402
 from repro_torch.launch import serve_vit  # noqa: E402
 from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router  # noqa: E402
@@ -124,6 +125,12 @@ def test_unmeasured_autotune_keys_every_tunable_site(name):
     assert len(report) == 27
     bidir = [r for r in report if r["kernel"] == "bidir_linear_attention"]
     assert len(bidir) == 3 and all(r["fits"] for r in bidir)
+    # The clustered block at every bucket: 128 threads and the slice's ring
+    # and sums, one of 7 blocks per batch·head at 196 tokens (1 at 16).
+    dh, n = cfg.head_dim, cfg.n_patches
+    for r in bidir:
+        assert r["smem_bytes"] == tbidir.smem_bytes(dh, dh) and r["threads"] == 128
+    assert tbidir.cluster_size(n) == (7 if n == 196 else 1)
     with pytest.raises(ValueError):
         at.autotune(cfg, buckets=(1,), measure=True, device="cpu")
 

@@ -99,6 +99,57 @@ def test_bidir_attention_kernel(cuda, g, n, dk, dv):
 
 
 @pytest.mark.gpu
+def test_bidir_attention_batch_entry_independent_of_g(cuda):
+    """Batch·heads 0, 77 and 127 give the same bits alone (G = 1), among
+    G = 4 (bucket 1) and among G = 128 (bucket 32): the row partition
+    depends on N alone. One launch per call."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((128, 196, 32), generator=gen, device=cuda) for _ in range(3))
+    full = tbidir.bidir_binary_attention(q, k, v)
+    pick = [0, 77, 127, 5]
+    four = tbidir.bidir_binary_attention(*(t[pick].contiguous() for t in (q, k, v)))
+    for j, i in enumerate(pick[:3]):
+        n0 = tbidir.bidir_binary_attention.launches
+        one = tbidir.bidir_binary_attention(*(t[i:i + 1].contiguous() for t in (q, k, v)))
+        assert tbidir.bidir_binary_attention.launches == n0 + 1
+        assert torch.equal(one[0], full[i]) and torch.equal(four[j], full[i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h,d", [(2, 196, 4, 32), (2, 197, 3, 48), (1, 70, 2, 7),
+                                     (2, 300, 1, 256)])
+def test_bidir_attention_strided_views_equal_contiguous(cuda, b, n, h, d):
+    """The (B, H, N, D) views of (B, N, H·D) projections, as the serving
+    path passes them, give the bits of contiguous (G, N, D) copies; the
+    output is a view of a (B, N, H, D) buffer, so the o-projection's
+    reshape copies nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    q, k, v = (torch.randn((b, n, h * d), generator=gen, device=cuda)
+               .reshape(b, n, h, d).permute(0, 2, 1, 3) for _ in range(3))
+    got = tbidir.bidir_binary_attention(q, k, v)
+    assert tuple(got.shape) == (b, h, n, d)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    flat = tbidir.bidir_binary_attention(*(t.reshape(b * h, n, d).contiguous()
+                                           for t in (q, k, v)))
+    assert torch.equal(got.reshape(b * h, n, d), flat)
+    assert scaled_error(got, ref.bidir_binary_attention_ref(q, k, v)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dv", [256, 200])
+def test_bidir_attention_slice_width_changes_no_bit(cuda, dv):
+    """At Dk = 256 every Dv slice width whose block fits (64, the default,
+    down to 8) gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(dv)
+    q, k = (torch.randn((2, 197, 256), generator=gen, device=cuda) for _ in range(2))
+    v = torch.randn((2, 197, dv), generator=gen, device=cuda)
+    want = tbidir.bidir_binary_attention(q, k, v)
+    assert tbidir.dv_slice(256, dv) == 64
+    for width in (32, 16, 8, 24, 10):
+        assert torch.equal(tbidir.bidir_binary_attention(q, k, v, width), want), width
+
+
+@pytest.mark.gpu
 def test_cuda_impl_on_cuda_tensors_launches(cuda):
     """impl="cuda" on CUDA tensors goes through the kernels (no plain-version
     fallback); impl="torch" launches nothing."""

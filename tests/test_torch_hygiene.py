@@ -1,7 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ or in chip_smoke.py
-imports `jax` or the reference package `repro`, checked statically (AST) and
-at run time in a fresh interpreter where importing either raises. The check
-never touches this process's modules. Also: the kernel modules hold no
+"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py or
+in tools/ab_attention.py imports `jax` or the reference package `repro`,
+checked statically (AST) and at run time in a fresh interpreter where
+importing either raises. The check never touches this process's modules. Also: the kernel modules hold no
 `try`, so no build or launch failure is caught and carried on past."""
 import ast
 import os
@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "tools" / "ab_attention.py"]
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -88,10 +88,17 @@ def test_bidir_attention_matches_pallas(b, h, n, dk, dv):
     want = np.asarray(jops.binary_linear_attention_bidir(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="interpret"))
     tq_, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    # The same values as the serving path passes them: the permuted
+    # (B, H, N, D) views of (B, N, H·D) projections.
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+             .reshape(b, n, -1).reshape(b, n, h, a.shape[-1]).permute(0, 2, 1, 3)
+             for a in (q, k, v)]
+    assert not views[0].is_contiguous() or h == 1
     for impl in ("torch", "cuda"):
-        got = ops.binary_linear_attention_bidir(tq_, tk, tv, impl=impl)
-        assert tuple(got.shape) == (b, h, n, dv)
-        assert scaled_error(got, want) < 1e-3
+        for args in ((tq_, tk, tv), views):
+            got = ops.binary_linear_attention_bidir(*args, impl=impl)
+            assert tuple(got.shape) == (b, h, n, dv)
+            assert scaled_error(got, want) < 1e-3
 
 
 def test_bidir_codes_zero_and_nan_like_reference():
