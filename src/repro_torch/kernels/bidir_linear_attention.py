@@ -4,10 +4,11 @@ wrapper of the hand-written CUDA kernel `csrc/bidir_linear_attention.cu`.
 Replaces the reference's Pallas kernel `bidir_binary_attention_pallas`
 (repro/kernels/bidir_linear_attention.py). Unlike it, there is no cap on N
 and the head dim is not padded. The kernel splits N over a thread-block
-cluster of `cluster_size(N)` blocks per batch·head (`row_ranges`), fixed by
-N alone. It reads q, k and v as (B, H, N, D) views through their batch,
-head and row strides and writes out into a (B, N, H, Dv) buffer, returned
-as its (B, H, N, Dv) view, so the serving path makes no layout copy. Head
+cluster of C blocks per batch·head, each owning `span` consecutive rows
+(`partition`: fixed by N alone, passed to the kernel at launch). It reads
+q, k and v as (B, H, N, D) views through their batch, head and row strides
+and writes out into a (B, N, H, Dv) buffer, returned as its (B, H, N, Dv)
+view, so the serving path makes no layout copy. Head
 dims above 128 run with Dv split across clusters (`dv_slice`), as far as
 `max_dk` (785 for this kernel, any Dv). On a CUDA tensor the wrapper
 launches the kernel or raises; on a CPU tensor it runs the plain version
@@ -20,6 +21,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,12 +41,12 @@ def cluster_size(n: int) -> int:
     return min(MAX_CLUSTER, -(-n // TILE))
 
 
-def row_ranges(n: int) -> list:
-    """The rows [start, stop) of each block of a cluster, in rank order:
-    ceil(N / C) rows each, the last block the rest."""
+def partition(n: int) -> tuple:
+    """(C, span): the cluster size and the rows each block owns. Block
+    `rank` of a cluster takes rows [rank·span, min(N, (rank + 1)·span)); the
+    kernel takes both from the launch, so this is the partition it runs."""
     c = cluster_size(n)
-    span = -(-n // c)
-    return [(min(n, r * span), min(n, (r + 1) * span)) for r in range(c)]
+    return c, -(-n // c)
 
 
 def smem_bytes(dk: int, dvs: int) -> int:
@@ -137,35 +139,35 @@ def out_buffer(b: int, h: int, n: int, dv: int, device) -> torch.Tensor:
 
 def launch_args(q, k, v, out, width: int) -> tuple:
     """The integers the C launch takes after the four pointers: B, H, N,
-    Dk, Dv, the slice width, the cluster size, then the batch, head and row
-    strides of q, k, v and out. All four are (B, H, N, D) views."""
+    Dk, Dv, the slice width, the cluster size and the rows per block
+    (`partition`), then the batch, head and row strides of q, k, v and out.
+    All four are (B, H, N, D) views."""
     b, h, n, dk = q.shape
     strides = sum((view_strides(t) for t in (q, k, v, out)), ())
-    return (b, h, n, dk, v.shape[-1], width, cluster_size(n)), strides
+    return (b, h, n, dk, v.shape[-1], width) + partition(n), strides
 
 
-def bidir_binary_attention(q, k, v, width=None):
+@functools.cache
+def _launcher():
+    """The C launch, built at first use, its argument types set once."""
+    from repro_torch.kernels import build
+
+    fn = build.load("bidir_linear_attention").bidir_binary_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bidir_binary_attention(q, k, v):
     """q, k: (B, H, N, Dk); v: (B, H, N, Dv), float32, any batch, head and
     row strides → (B, H, N, Dv) float32, a view of a (B, N, H, Dv) buffer on
-    the card. (G, N, D) inputs give (G, N, Dv), contiguous. `width`: the Dv
-    slice a block takes, `dv_slice`'s when None; every width whose block
-    fits gives the same bits."""
-    fit = check_views(q, k, v)
-    width = fit if width is None else int(width)
-    if not (1 <= width <= v.shape[-1]
-            and smem_bytes(q.shape[-1], width) <= SMEM_PER_BLOCK):
-        raise ValueError(f"Dv slice {width} does not fit Dv={v.shape[-1]} "
-                         f"at Dk={q.shape[-1]}")
+    the card. (G, N, D) inputs give (G, N, Dv), contiguous."""
+    width = check_views(q, k, v)
     if q.device.type == "cpu":
         return ref.bidir_binary_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    from repro_torch.kernels import build
-
-    fn = build.load("bidir_linear_attention").bidir_binary_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     flat = q.dim() == 3
     q4, k4, v4 = (t.unsqueeze(1) if flat else t for t in (q, k, v))
     b, h, n, _ = q4.shape
@@ -173,8 +175,8 @@ def bidir_binary_attention(q, k, v, width=None):
     ints, strides = launch_args(q4, k4, v4, out, width)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), *ints,
-                 (ctypes.c_int64 * len(strides))(*strides), stream)
+        err = _launcher()(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                          *ints, (ctypes.c_int64 * 12)(*strides), stream)
     if err != 0:
         raise RuntimeError(
             f"bidir_binary_attention kernel launch failed: CUDA error {err}")

@@ -20,10 +20,12 @@
 //
 // Design:
 //   * a thread-block cluster of C blocks per (batch*head, slice of Dv
-//     columns); C = min(8, ceil(N / 32)) and block `rank` of the cluster owns
-//     rows [rank * span, min(N, (rank + 1) * span)), span = ceil(N / C). The
-//     partition depends on N alone: never on G, the SM count, the slice or
-//     the layout. Grid (C * G, ceil(Dv / dvs)), cluster (C, 1, 1);
+//     columns); block `rank` of the cluster owns rows
+//     [rank * span, min(N, (rank + 1) * span)). C and span come with the
+//     launch: the wrapper passes C = min(8, ceil(N / 32)) and
+//     span = ceil(N / C) (`bidir_linear_attention.partition`), functions of
+//     N alone, never of G, the SM count, the slice or the layout. Grid
+//     (C * G, ceil(Dv / dvs)), cluster (C, 1, 1);
 //   * each block streams its rows through a two-stage ring of 32-row tiles
 //     filled by cp.async (16-byte copies when every row is 16-byte aligned,
 //     else 4-byte ones): first k and the slice's columns of v, then q. The
@@ -79,7 +81,7 @@ struct Args {
   const float* k;
   const float* v;
   float* out;
-  int H, N, Dk, Dv, DVS, C;
+  int H, N, Dk, Dv, DVS, C, span;
   int64_t sq[3], sk[3], sv[3], so[3];   // batch, head and row strides, in floats
 };
 
@@ -183,13 +185,6 @@ size_t smem_bytes(int Dk, int dvs) {
   return sizeof(float) * (2 * static_cast<size_t>(TILE) * (Dk + PAD + dvs) + sums);
 }
 
-// The cluster size: a function of N alone. Mirrored by
-// repro_torch.kernels.bidir_linear_attention.cluster_size.
-int cluster_size(int N) {
-  const int c = (N + TILE - 1) / TILE;
-  return c < MAX_CLUSTER ? c : MAX_CLUSTER;
-}
-
 __device__ __forceinline__ float code(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
 
 // kVec: every row of q, k, v and out is 16-byte aligned, and Dk and the
@@ -210,9 +205,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bidir_binary_attention_ke
   const int Dk = a.Dk;
   const int dv0 = blockIdx.y * a.DVS;
   const int dvs = min(a.DVS, a.Dv - dv0);        // this block's columns of v
-  const int span = (a.N + C - 1) / C;
-  const int r0 = min(a.N, rank * span);
-  const int r1 = min(a.N, r0 + span);            // this block's rows [r0, r1)
+  const int r0 = min(a.N, rank * a.span);
+  const int r1 = min(a.N, r0 + a.span);          // this block's rows [r0, r1)
   const int tiles = (r1 - r0 + TILE - 1) / TILE;
 
   const float* qg = a.q + bi * a.sq[0] + hi * a.sq[1];
@@ -394,15 +388,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bidir_binary_attention_ke
 // with its last dim contiguous. strides: 12 values, the batch, head and row
 // strides (in floats) of q, k, v and out, in that order. dv_slice: the
 // columns of v one block takes (1 <= dv_slice <= Dv); cluster: the blocks
-// per (batch*head, slice), which must be cluster_size(N). Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for what it does not take,
-// and for a block whose shared memory does not fit).
+// per (batch*head, slice), 1 to 8; span: the rows each block owns, with
+// cluster * span >= N. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for what it does not take, and for a block whose
+// shared memory does not fit).
 extern "C" int bidir_binary_attention_launch(const void* q, const void* k, const void* v,
                                              void* out, int B, int H, int N, int Dk, int Dv,
-                                             int dv_slice, int cluster,
+                                             int dv_slice, int cluster, int span,
                                              const long long* strides, void* stream) {
   if (B < 1 || H < 1 || N < 1 || Dk < 1 || Dv < 1 || dv_slice < 1 || dv_slice > Dv ||
-      cluster != cluster_size(N) || static_cast<int64_t>(B) * H * cluster > 0x7fffffff)
+      cluster < 1 || cluster > MAX_CLUSTER || span < 1 ||
+      static_cast<int64_t>(cluster) * span < N ||
+      static_cast<int64_t>(B) * H * cluster > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(Dk, dv_slice);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
@@ -417,6 +414,7 @@ extern "C" int bidir_binary_attention_launch(const void* q, const void* k, const
   a.Dv = Dv;
   a.DVS = dv_slice;
   a.C = cluster;
+  a.span = span;
   bool vec = Dk % 4 == 0 && Dv % 4 == 0 && dv_slice % 4 == 0;
   for (int x = 0; x < 3; ++x) {
     a.sq[x] = strides[x];

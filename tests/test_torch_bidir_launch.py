@@ -19,36 +19,44 @@ NS = [1, 2, 31, 32, 33, 64, 65, 196, 197, 224, 225, 250, 256, 257, 300, 1000, 40
       5000, 12345]
 
 
+def block_rows(c, span, n):
+    """The rows [r0, r1) of each block, in rank order, as the kernel forms
+    them from the cluster size and span it is launched with."""
+    return [(min(n, r * span), min(n, min(n, r * span) + span)) for r in range(c)]
+
+
 @pytest.mark.parametrize("n", NS)
 def test_rows_cover_n_once_in_rank_order(n):
-    c = tb.cluster_size(n)
+    q = torch.empty((1, 1, n, 8))
+    ints, _ = tb.launch_args(q, q, q, tb.out_buffer(1, 1, n, 8, "cpu"), 8)
+    c, span = ints[-2:]
+    assert (c, span) == tb.partition(n)
     assert 1 <= c <= tb.MAX_CLUSTER == 8 and c == min(8, -(-n // 32))
-    ranges = tb.row_ranges(n)
-    assert len(ranges) == c
+    ranges = block_rows(c, span, n)
     assert ranges[0][0] == 0 and ranges[-1][1] == n
     for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
         assert a1 == b0, "contiguous, in rank order"
     assert all(r1 > r0 for r0, r1 in ranges), "no block without rows"
     covered = [i for r0, r1 in ranges for i in range(r0, r1)]
     assert covered == list(range(n)), "every row exactly once"
-    assert max(r1 - r0 for r0, r1 in ranges) == -(-n // c)
+    assert max(r1 - r0 for r0, r1 in ranges) == span == -(-n // c)
 
 
 @pytest.mark.parametrize("n", [196, 197, 5000])
 def test_partition_is_the_same_for_every_g_slice_and_layout(n):
-    """The cluster size the launch passes depends on N alone: G = 1, 4 and
-    128, contiguous or strided, any Dv slice."""
+    """The cluster size and span the launch passes depend on N alone: G = 1,
+    4 and 128, contiguous or strided, any Dv slice."""
     seen = set()
     for g in (1, 4, 128):
         q = torch.empty((g, 1, n, 8))
         for width in (8, 4):
             ints, _ = tb.launch_args(q, q, q, tb.out_buffer(g, 1, n, 8, "cpu"), width)
-            seen.add(ints[-1])
+            seen.add(ints[-2:])
         b, h = (g, 1) if g < 4 else (g // 4, 4)
         x = torch.empty((b, n, h * 8)).reshape(b, n, h, 8).permute(0, 2, 1, 3)
         ints, _ = tb.launch_args(x, x, x, tb.out_buffer(b, h, n, 8, "cpu"), 8)
-        seen.add(ints[-1])
-    assert seen == {tb.cluster_size(n)}
+        seen.add(ints[-2:])
+    assert seen == {tb.partition(n)}
 
 
 def test_strides_of_projection_views_and_output():
@@ -63,7 +71,7 @@ def test_strides_of_projection_views_and_output():
     flat = out.permute(0, 2, 1, 3).reshape(b, n, h * dv)
     assert flat.data_ptr() == out.data_ptr(), "the o-projection's reshape copies nothing"
     ints, strides = tb.launch_args(q, k, v, out, 48)
-    assert ints == (b, h, n, d, dv, 48, 7)
+    assert ints == (b, h, n, d, dv, 48, 7, 28)
     assert strides == (n * h * d, d, h * d) * 2 + (n * h * dv, dv, h * dv) * 2
     # contiguous (G, N, D), as (G, 1, N, D): the unit head dim has stride 0
     g3 = torch.randn(3, 70, 16).unsqueeze(1)
@@ -124,6 +132,3 @@ def test_wrapper_on_cpu_views_runs_the_plain_version():
     want = ref.bidir_binary_attention_ref(*(t.contiguous() for t in (q, k, v)))
     assert tuple(got.shape) == (b, h, n, d)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert torch.equal(tb.bidir_binary_attention(q, k, v, width=4), got)
-    with pytest.raises(ValueError, match="slice"):
-        tb.bidir_binary_attention(q, k, v, width=d + 1)

@@ -138,15 +138,21 @@ def test_bidir_attention_strided_views_equal_contiguous(cuda, b, n, h, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dv", [256, 200])
 def test_bidir_attention_slice_width_changes_no_bit(cuda, dv):
-    """At Dk = 256 every Dv slice width whose block fits (64, the default,
-    down to 8) gives the same bits."""
+    """At Dk = 256 the slice width follows Dv (`dv_slice`): 64-wide slices
+    at Dv = 256 and 200 (the last one 8 wide at 200), one slice of all of
+    Dv from 128 down. An output column depends on its column of v alone, so
+    the first columns of the Dv = 256 or 200 run equal, bit for bit, the
+    runs on v's first 128, 64, 32, 24, 16, 10 and 8 columns (10: rows not
+    16-byte aligned, the 4-byte-copy kernel)."""
     gen = torch.Generator(device=cuda).manual_seed(dv)
     q, k = (torch.randn((2, 197, 256), generator=gen, device=cuda) for _ in range(2))
     v = torch.randn((2, 197, dv), generator=gen, device=cuda)
     want = tbidir.bidir_binary_attention(q, k, v)
     assert tbidir.dv_slice(256, dv) == 64
-    for width in (32, 16, 8, 24, 10):
-        assert torch.equal(tbidir.bidir_binary_attention(q, k, v, width), want), width
+    for cols in (128, 64, 32, 24, 16, 10, 8):
+        assert tbidir.dv_slice(256, cols) == cols
+        got = tbidir.bidir_binary_attention(q, k, v[..., :cols].contiguous())
+        assert torch.equal(got, want[..., :cols]), cols
 
 
 @pytest.mark.gpu

@@ -1,23 +1,21 @@
-"""Device time of the bidirectional Hamming attention and of the serving
-forward, for one checkout of the PyTorch/CUDA port, on the card.
+"""The bidirectional Hamming attention and the serving forward of one
+checkout of the PyTorch/CUDA port, on the card, measured with
+`chip_smoke.py`'s own timing functions so that two checkouts can be compared
+in turns.
 
     python3 tools/ab_attention.py [--src DIR] [--label NAME]
 
 `--src` is the `src/` directory whose `repro_torch` is measured (this
-checkout's by default), so that two checkouts are compared in turns on one
-card: unpack the other one under `build/` and run parent, change, change,
-parent. Only what every version of the port has is called:
-`bidir_binary_attention` on contiguous (G, N, D) inputs, the
-`ops.binary_linear_attention_bidir` serving site on the (B, H, N, D) views
-of (B, N, H·D) projections with the o-projection's reshape after it, and
-`BucketedViTEngine` at the serving geometry (`ViTConfig(image_size=56)`).
-
-Device times are summed kernel durations per call from a torch.profiler
-trace (`kernels.autotune.trace_device`) of back-to-back calls, inputs warm in
-L2; wall times are the median of 30 full-bucket forwards on the host clock
-(`launch.serve_vit.bucket_latencies`). Prints the card's name and power
-limit and, last, one JSON object.
-Needs one CUDA device; imports nothing of JAX.
+checkout's by default): unpack the other checkout under `build/` and run
+parent, change, change, parent on one card. It prints, from
+`chip_smoke.time_attention`, `time_site` and `profile_forward`: the kernel's
+device ms at G = 4 and G = 128; the serving site's device µs, kernels and
+host µs per call at buckets 1 and 32; and device-busy ms, kernels and
+attention launches per forward of each arm at buckets 1 and 32, beside the
+median wall ms of a full-bucket forward (`launch.serve_vit.bucket_latencies`).
+Only what every version of the port has is called. Prints the card's name
+and power limit and, last, one JSON object. Needs one CUDA device; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,21 +26,14 @@ import os
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def per_call(trace, iters, match=None):
-    """(µs per call, kernels per call) over the trace's kernels whose name
-    contains `match` (all kernels when None)."""
-    hits = [ms for name, ms in trace if match is None or match in name]
-    return sum(hits) * 1e3 / iters, len(hits) / iters
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=os.path.join(os.path.dirname(HERE), "src"))
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--wall-iters", type=int, default=100)
     args = ap.parse_args()
 
     import torch
@@ -51,10 +42,9 @@ def main():
         print("ab_attention: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.src))
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
     from repro_torch.core.policy import DENSE
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.autotune import trace_device
-    from repro_torch.kernels.bidir_linear_attention import bidir_binary_attention
     from repro_torch.launch.serve_vit import bucket_latencies
     from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
     from repro_torch.serve.vision import BucketedViTEngine, build_policy_model
@@ -64,31 +54,14 @@ def main():
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}; {args.label}: {args.src}", flush=True)
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(5)
-
-    def traced(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        return trace_device(fn, iters)
-
-    result = {"label": args.label, "card": smi, "kernel_us": {}, "site_us": {},
+    result = {"label": args.label, "card": smi, "kernel_ms": {}, "site": {},
               "forward": {}}
-    n, d, h = 196, 32, 4
     for g in (4, 128):
-        q, k, v = (torch.randn((g, n, d), generator=gen, device=dev) for _ in range(3))
-        trace = traced(lambda: bidir_binary_attention(q, k, v), args.iters)
-        result["kernel_us"][f"G={g}"] = per_call(trace, args.iters)[0]
+        result["kernel_ms"][f"G={g}"] = cs.time_attention(torch, dev, g, 196, 32)[0]
     for b in (1, 32):
-        q, k, v = (torch.randn((b, n, h * d), generator=gen, device=dev)
-                   .reshape(b, n, h, d).permute(0, 2, 1, 3) for _ in range(3))
-
-        def site():
-            out = ops.binary_linear_attention_bidir(q, k, v, impl="cuda")
-            return out.permute(0, 2, 1, 3).reshape(b, n, h * d)
-
-        us, kernels = per_call(traced(site, args.iters), args.iters)
-        result["site_us"][f"bucket {b}"] = {"us": us, "kernels": kernels}
+        dev_us, kernels, host_us = cs.time_site(torch, dev, b)
+        result["site"][f"bucket {b}"] = {"device_us": dev_us, "kernels": kernels,
+                                         "host_us": host_us}
 
     cfg = ViTConfig(image_size=56)
     dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
@@ -96,16 +69,12 @@ def main():
     for arm in ("shiftadd", "stage1", "dense"):
         model, params = build_policy_model(cfg, arm, dense_model, dense_params)
         engine = BucketedViTEngine(model, with_seeded_router(params, 7), device=dev).warmup()
-        wall = bucket_latencies(engine, iters=30)
+        wall = bucket_latencies(engine, iters=args.wall_iters)
         for b in (1, 32):
-            images = torch.randn((b, 56, 56, 3), generator=gen, device=dev)
-            trace = traced(lambda: engine.infer(images), 20)
-            busy, kernels = per_call(trace, 20)
-            attn_us, attn = per_call(trace, 20, "bidir_binary_attention")
+            n_k, busy, _, _, attn = cs.profile_forward(torch, engine, b)
             result["forward"][f"{arm} b{b}"] = {
-                "device_busy_ms": busy / 1e3, "kernels": kernels,
-                "attention_launches": attn, "attention_ms": attn_us / 1e3,
-                "wall_ms": wall[b] * 1e3}
+                "device_busy_ms": busy, "kernels": n_k,
+                "attention_ms_launches": attn, "wall_ms": wall[b] * 1e3}
     for key, val in result.items():
         if isinstance(val, dict):
             for sub, x in val.items():
