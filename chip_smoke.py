@@ -8,11 +8,14 @@ d_model 128, 4 layers, 4 heads) and checks what comes out:
   ragged ones, the attentions also at head dim 256 (Dv split across
   blocks) and at N = 5000; every tile of the three matmuls bit-identical, a
   row of shift_matmul and a batch entry of add_matmul the same bits alone
-  as among all; a batch·head of the bidirectional attention the same bits
-  alone, among G = 4 and among G = 128, on strided projection views as on
-  contiguous copies, and whatever the Dv slice width;
+  as among all; a batch·head of either attention the same bits alone,
+  among G = 4 and among G = 128 and whatever the Dv slice width (the
+  causal one also with its final carry), the bidirectional one on strided
+  projection views as on contiguous copies;
 - [3] device time of each kernel at its bucket-32 shape (the bidirectional
-  attention also at bucket 1, G = 4) beside its time before its last
+  attention also at bucket 1, G = 4; the causal one, summed over the
+  kernels of a call, also at chunks 64 and 128, at G = 4 and at an LM
+  head's G = 32, N = 4096, D = 128) beside its time before its last
   redesign, its bound, its plain version and, where one exists, one PyTorch
   call's time; the attention's serving site (projection views in, the
   o-projection's reshape after) at buckets 1 and 32: device µs, kernels
@@ -62,35 +65,73 @@ ATTN_TOL = 1e-3       # scaled error, float32 throughout (both attentions)
 # than rounding, so the bound is the kernel tolerance, not float32 noise.
 ENGINE_TOL = 2e-2
 REQUEST_SIZES = (1, 5, 32, 40)
-# Device ms per launch of each kernel at the phase-[3] shapes before its
-# last redesign, printed beside each new time: the matmuls and the causal
-# attention with the first tiled matmul core era's kernels (WMMA), the
-# bidirectional attention with its one-block-per-batch·head kernel (the
-# G = 128 time of the third slice's run); this script's runs on an NVIDIA
+# Device ms per call of each kernel at the phase-[3] shapes before its
+# last redesign, printed beside each new time: the matmuls with the first
+# tiled matmul core era's kernels (WMMA), the bidirectional attention with
+# its one-block-per-batch·head kernel (the G = 128 time of the third slice's
+# run), the causal attention with its one-block-per-batch·head kernel
+# (chunk 196: the second slice's run; the other shapes: that kernel timed
+# by tools/ab_attention.py in the fifth slice's A/B call); runs on an NVIDIA
 # H100 80GB HBM3 at 700.00 W, recorded in PERF.md. None: never measured.
 EARLIER_MS = {"shift_matmul": 0.01463546, "shift_matmul up": 0.01544,
               "shift_matmul down": 0.02546, "bidir_binary_attention": 0.04558,
               "bidir_binary_attention G=4": None,
               "add_matmul": 0.01867232, "add_matmul q_ktv": 0.00719,
               "add_matmul_packed": 0.01797008, "add_matmul_packed q_ktv": 0.00746,
-              "binary_linear_attention": 0.19065472}
+              "binary_linear_attention": 0.19065472,
+              "binary_linear_attention chunk 64": 0.10987,
+              "binary_linear_attention chunk 128": 0.13654,
+              "binary_linear_attention G=4": 0.19002,
+              "binary_linear_attention G=32 N=4096 D=128": 17.43186}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
+TIMED = "chip_smoke: timed calls"
+
+
+def trace_device(torch, fn, iters, attempts=4, warm=4):
+    """[(kernel name, device ms)] of the kernels that `iters` back-to-back
+    calls of `fn` ran, from a torch.profiler (CUPTI) trace, as
+    `repro_torch.kernels.autotune.trace_device` takes them: a trace on the
+    card tends to lose its first few kernels, so `warm` calls run first and
+    only kernels that start inside the range around the timed calls count;
+    an empty trace is taken again. This script keeps its own copy so that
+    tools/ab_attention.py times another checkout by the same method."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for attempt in range(attempts):
+        time.sleep(0.5 * attempt)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda.synchronize()
+            with record_function(TIMED):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events if e.name == TIMED), default=None)
+        # The range itself shows on the device's timeline too: left out.
+        kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name != TIMED
+                   and t0 is not None and e.time_range.start >= t0]
+        if kernels:
+            return kernels
+    return []
+
+
 def kernel_times(torch, fn, iters):
     """{kernel name: (device µs, launches)} over `iters` back-to-back calls
     of `fn` (after a warm-up), from a torch.profiler (CUPTI) trace; {} if
     the profiler recorded no device event in any of its attempts."""
-    from repro_torch.kernels.autotune import trace_device
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     by_name = {}
-    for name, ms in trace_device(fn, iters):
+    for name, ms in trace_device(torch, fn, iters):
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + ms * 1e3, n + 1)
     return by_name
@@ -455,6 +496,57 @@ def check_causal(torch, dev, shapes):
     return worst
 
 
+def check_causal_invariance(torch, dev):
+    """The causal kernels' invariants, bit for bit, with and without
+    return_state: batch·heads 0, 77 and 127 give the same output and final
+    carry alone (G = 1), among G = 4 and among G = 128, whose Dv slices
+    differ (8 and all 32 columns); at Dk = 256 the first columns of the
+    Dv = 256 and 200 runs equal runs on v's first 128, 64, 32, 24, 16, 10
+    and 8 columns (other slice widths); and a second run repeats the
+    first."""
+    from repro_torch.kernels.linear_attention import binary_linear_attention as bla
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn((128, 196, 32), generator=g, device=dev) for _ in range(3))
+    pick = [0, 77, 127, 5]
+    for chunk in (196, 64):
+        for state in (False, True):
+            full = bla(q, k, v, chunk, return_state=state)
+            full = full if state else (full,)
+            again = bla(q, k, v, chunk, return_state=state)
+            if not all(torch.equal(a, b) for a, b in zip(again if state else (again,), full)):
+                raise AssertionError(f"causal chunk {chunk}: differs between runs")
+            four = bla(*(t[pick].contiguous() for t in (q, k, v)), chunk, return_state=state)
+            four = four if state else (four,)
+            for j, i in enumerate(pick[:3]):
+                one = bla(*(t[i:i + 1].contiguous() for t in (q, k, v)), chunk,
+                          return_state=state)
+                one = one if state else (one,)
+                if not all(torch.equal(o[0], f[i]) and torch.equal(x[j], f[i])
+                           for o, x, f in zip(one, four, full)):
+                    raise AssertionError(f"causal chunk {chunk}, state {state}: batch·head "
+                                         f"{i} differs alone, among G=4 and among G=128")
+    log("  binary_linear_attention batch·heads 0, 77, 127 (chunks 196, 64, with and without "
+        "state): bit-identical alone, among G=4 and among G=128, and run to run")
+    for dv in (256, 200):
+        q, k = (torch.randn((2, 197, 256), generator=g, device=dev) for _ in range(2))
+        v = torch.randn((2, 197, dv), generator=g, device=dev)
+        for state in (False, True):
+            want = bla(q, k, v, 64, return_state=state)
+            want = want if state else (want,)
+            for cols in (128, 64, 32, 24, 16, 10, 8):
+                got = bla(q, k, v[..., :cols].contiguous(), 64, return_state=state)
+                got = got if state else (got,)
+                # out, kv and vsum keep their first columns; ksum is whole
+                same = all(torch.equal(a, b if a.shape == b.shape else b[..., :cols])
+                           for a, b in zip(got, want))
+                if not same:
+                    raise AssertionError(f"causal Dk=256: Dv={cols} differs from the first "
+                                         f"columns at Dv={dv} (state {state})")
+    log("  binary_linear_attention Dk=256: the first columns at Dv=256 and 200 bit-identical "
+        "to Dv=128, 64, 32, 24, 16, 10, 8 (other slice widths), with and without state")
+
+
 def time_add_matmul(torch, dev, g, m, k, n, packed=False):
     from repro_torch.kernels import ref
     from repro_torch.kernels.add_matmul import add_matmul
@@ -497,13 +589,18 @@ def causal_ops(n, dk, dv, chunk):
     return ops
 
 
-def time_causal(torch, dev, g, n, d):
+def time_causal(torch, dev, g, n, d, chunk=None):
+    """The causal kernel at G batch·heads, N rows, Dk = Dv = d and `chunk`
+    (None: min(256, N), what ops.binary_linear_attention_fused takes), with
+    only what every version of its wrapper takes, so that tools/ab_attention.py
+    can time another checkout. Returns (ms per call, summed over the call's
+    kernels; plain ms; None; bound ms; what bounds it; how it was timed)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.linear_attention import binary_linear_attention
 
     gen = torch.Generator(device=dev).manual_seed(13)
     q, k, v = (torch.randn((g, n, d), generator=gen, device=dev) for _ in range(3))
-    chunk = min(256, n)               # what ops.binary_linear_attention_fused takes
+    chunk = min(256, n) if chunk is None else chunk
     t, how = timed(torch, ms=lambda: binary_linear_attention(q, k, v, chunk),
                    plain_ms=lambda: ref.binary_linear_attention_ref(q, k, v),
                    library_ms=None)
@@ -512,6 +609,17 @@ def time_causal(torch, dev, g, n, d):
     least = min(causal_ops(n, d, d, c) for c in range(1, n + 1))
     b, by = bound_ms(4 * g * n * 4 * d, g * least, FP32_FLOPS)
     return t["ms"], t["plain_ms"], None, b, by, how
+
+
+# The causal kernel's phase-[3] shapes: (G, N, D, chunk). The first is the
+# autotune site at bucket 32 with the default chunk, then the other chunks
+# the autotune launches there, bucket 1, and one sequence of an LM head
+# (CodeQwen1.5-7B: 32 heads of 128, N = 4096).
+CAUSAL_TIMED = {"binary_linear_attention": (128, 196, 32, 196),
+                "binary_linear_attention chunk 64": (128, 196, 32, 64),
+                "binary_linear_attention chunk 128": (128, 196, 32, 128),
+                "binary_linear_attention G=4": (4, 196, 32, 196),
+                "binary_linear_attention G=32 N=4096 D=128": (32, 4096, 128, 256)}
 
 
 def seeded_live_params(torch, params, seed):
@@ -769,7 +877,9 @@ def main():
     causal_err = check_causal(torch, dev, [
         (128, 196, 32, 32, 196), (128, 196, 32, 32, 64), (128, 196, 32, 32, 128),
         (128, 196, 32, 32, 256), (8, 197, 64, 48, 197), (8, 197, 64, 48, 64),
-        (2, 5000, 64, 64, 256), (8, 196, 256, 256, 64), (2, 300, 256, 200, 128)])
+        (2, 5000, 64, 64, 256), (8, 196, 256, 256, 64), (2, 300, 256, 200, 128),
+        (4, 196, 32, 32, 196), (32, 4096, 128, 128, 256)])
+    check_causal_invariance(torch, dev)
 
     log("[3] timing at the bucket-32 shapes")
     timings = {
@@ -783,8 +893,9 @@ def main():
         "add_matmul_packed": time_add_matmul(torch, dev, 128, 32, 200, 32, packed=True),
         "add_matmul_packed q_ktv": time_add_matmul(torch, dev, 128, 196, 32, 32,
                                                    packed=True),
-        "binary_linear_attention": time_causal(torch, dev, 128, 196, 32),
     }
+    timings.update({name: time_causal(torch, dev, *shape)
+                    for name, shape in CAUSAL_TIMED.items()})
     for name, (ms, plain, lib, b, by, _) in timings.items():
         earlier = EARLIER_MS[name]
         log(f"  {name}: kernel {ms:.5f} ms (before its redesign: "
@@ -808,6 +919,8 @@ def main():
     ops.reset_launch_counts()
     table, report = run_autotune(torch, dev)
     tune_launches = ops.launch_counts()
+    causal_timing = sorted({r["timing"] for r in report if r["kernel"] == "linear_attention"})
+    log(f"  causal sites timed by: {causal_timing}")
     log("[6] serving shiftadd with the tuned table")
     tuned_launches = serve_tuned(torch, dev, table)
     path = {k: tune_launches[k] + tuned_launches[k] for k in tune_launches}
@@ -843,6 +956,13 @@ def main():
                "max_abs_err": err, "ms": ms, "plain_ms": plain,
                "bound_ms": b, "bound_by": by, "library_ms": lib,
                "timing": how, "shape": shape}
+        if name == "binary_linear_attention":      # also at the other timed shapes
+            row["other_shapes"] = {
+                key: {"shape": CAUSAL_TIMED[key], "ms": timings[key][0],
+                      "plain_ms": timings[key][1], "bound_ms": timings[key][3],
+                      "bound_by": timings[key][4]}
+                for key in CAUSAL_TIMED if key != name}
+            row["autotune_timing"] = causal_timing
         if name == "bidir_binary_attention":       # also at bucket 1
             ms4, plain4, _, b4, _, _ = timings["bidir_binary_attention G=4"]
             row.update(ms_g4=ms4, plain_ms_g4=plain4, bound_ms_g4=b4,

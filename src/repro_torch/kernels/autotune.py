@@ -19,10 +19,12 @@ selects a CUDA launch: its lookups serve the defaults):
 Each candidate must fit a Hopper block (`analysis.kernel_contracts.fits`).
 On the card every candidate is timed through the real `kernels.ops` wrapper
 (a one-entry table forces it down the serving path) by its device time from
-a torch.profiler trace, and the median decides; should the profiler record
-nothing, the site is timed by CUDA-graph replays instead, and its report row
-says so. Without measurement, every site takes its kernel's default
-configuration and the table says so.
+a torch.profiler trace, summed over every kernel that one call runs (the
+causal attention runs two to four, `per_call_ms`), and the median over
+calls decides; should the profiler record nothing, the site is timed by
+CUDA-graph replays instead, and its report row says so. Without
+measurement, every site takes its kernel's default configuration and the
+table says so.
 
 Winning configurations persist as JSON (`TuneTable.save`/`load`, the
 reference's schema) keyed by exact kernel × geometry; the engine threads the
@@ -68,11 +70,12 @@ GEOMETRY_KEYS = {
     "linear_attention": ("g", "n", "dk", "dv"),
 }
 
-# The kernel function each site's launch runs, as the profiler names it.
+# What the names of the kernels of each site's call hold, as the profiler
+# names them: one matmul kernel, or the causal attention's passes.
 _SYMBOL = {"shift_matmul": "tile_matmul_kernel",
            "add_matmul": "tile_matmul_kernel",
            "add_matmul_packed": "tile_matmul_kernel",
-           "linear_attention": "binary_linear_attention_kernel"}
+           "linear_attention": "binary_linear_attention_"}
 
 
 def geometry_key(kernel: str, **geom) -> str:
@@ -229,26 +232,64 @@ def _site_call(spec: dict, device):
         q, k, v, impl="cuda", tune=table)
 
 
-def trace_device(fn, iters: int, attempts: int = 4) -> list:
+# The profiler range around the timed calls of a trace.
+_TIMED = "trace_device: timed calls"
+
+
+def trace_device(fn, iters: int, attempts: int = 4, warm: int = 4) -> list:
     """[(kernel name, device ms)] of every kernel that `iters` back-to-back
-    calls of `fn` ran, from a torch.profiler (CUPTI) trace. Now and then a
-    trace on the card comes back without device events; it is taken again,
+    calls of `fn` ran, in the order they started, from a torch.profiler
+    (CUPTI) trace. A trace on the card tends to lose its first few kernels,
+    so `warm` calls run first inside the trace, and only the kernels that
+    start inside the profiler range around the timed calls are kept. Now
+    and then a trace comes back without device events; it is taken again,
     after a growing pause, up to `attempts` times. [] if every trace came
     back empty."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(attempts):
         time.sleep(0.5 * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(warm):
                 fn()
             torch.cuda.synchronize()
-        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            return events
+            with record_function(_TIMED):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events if e.name == _TIMED), default=None)
+        # The range itself shows on the device's timeline too: left out.
+        kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+                         for e in events
+                         if e.device_type == torch.autograd.DeviceType.CUDA and e.name != _TIMED
+                         and t0 is not None and e.time_range.start >= t0)
+        if kernels:
+            return [(name, ms) for _, name, ms in kernels]
     return []
+
+
+def per_call_ms(events, symbol: str) -> list:
+    """Device ms of each call, from a trace's [(kernel name, ms)] in the
+    order the kernels started: the kernels whose name holds `symbol`, cut
+    into calls where a name comes again (a call runs each of its kernels
+    once), each call the sum of its kernels. A group that lacks one of the
+    kernels seen, as a call cut short at a trace's edge, is left out; where
+    the trace begins inside a call, each group still sums one run of every
+    kernel of the (identical) calls."""
+    calls, current = [], {}
+    for name, ms in events:
+        if symbol not in name:
+            continue
+        if name in current:
+            calls.append(current)
+            current = {}
+        current[name] = ms
+    if current:
+        calls.append(current)
+    names = set().union(*calls) if calls else set()
+    return [sum(c.values()) for c in calls if set(c) == names]
 
 
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
@@ -258,9 +299,10 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     of `replays` replays. It includes the few-microsecond gaps between the
     graph's kernels, which the profiler's kernel durations leave out.
 
-    A wrapper counts a launch when it enqueues its kernel, and under capture
-    that enqueues into the graph, where nothing runs: the captured counts
-    are taken back, and each replay adds the launches it runs."""
+    A wrapper counts a launch when it enqueues its kernels (one per call,
+    however many kernels the call runs), and under capture that enqueues
+    into the graph, where nothing runs: the captured counts are taken back,
+    and each replay adds the launches it runs."""
     import torch
 
     from repro_torch.kernels import ops
@@ -294,19 +336,20 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-PROFILER = "median kernel duration per launch (torch.profiler)"
-GRAPH = "mean per launch over CUDA-graph replays (CUDA events; the profiler recorded nothing)"
+PROFILER = "median per call of its summed kernel durations (torch.profiler)"
+GRAPH = "mean per call over CUDA-graph replays (CUDA events; the profiler recorded nothing)"
 
 
 def measure_site(spec: dict, configs: list, iters: int = 20,
                  device="cuda") -> tuple:
-    """(device milliseconds of one launch under each config, how they were
+    """(device milliseconds of one call under each config, how they were
     timed), through the real `kernels.ops` wrapper on the card. Each config
     runs `iters` times back to back inside its own profiler trace, and each
-    launch's kernel duration is read from the trace (CUDA events around
-    single short launches would time the host's launch rate instead). Should
-    the profiler record nothing, the whole site is timed by CUDA-graph
-    replays instead, so that its configs are compared by one method."""
+    call's kernel durations are read from the trace and summed
+    (`per_call_ms`; CUDA events around single short calls would time the
+    host's launch rate instead). Should the profiler record nothing, the
+    whole site is timed by CUDA-graph replays instead, so that its configs
+    are compared by one method."""
     import torch
 
     from repro_torch import resolve_device
@@ -326,9 +369,9 @@ def measure_site(spec: dict, configs: list, iters: int = 20,
         call()                            # build, allocate and warm
         call()
         torch.cuda.synchronize(device)
-        ms = [t for name, t in trace_device(call, iters) if _SYMBOL[kernel] in name]
+        ms = per_call_ms(trace_device(call, iters), _SYMBOL[kernel])
         # A trace may drop an event at its edges; the median stands on the
-        # rest, but never on fewer than half the launches.
+        # rest, but never on fewer than half the calls.
         if not iters // 2 < len(ms) <= iters:
             return [graph_ms(c, iters) for c in calls], GRAPH
         medians.append(statistics.median(ms))
@@ -401,7 +444,7 @@ def autotune(base_cfg=None, buckets=None, measure=None, iters=20,
                 all_ms=(None if not measure else
                         [[c, t] for c, t in zip(configs, times)])))
     on_card = device.type == "cuda"
-    reason = (f"device time per launch, {iters} launches per candidate, "
+    reason = (f"device time per call, {iters} calls per candidate, "
               "through kernels.ops (each report row says how it was timed)"
               if measure else
               f"not measured (device={device.type}): every site takes its "

@@ -147,7 +147,7 @@ def test_candidates_fit_a_hopper_block():
                   dk=128, dv=128)
     assert [c["chunk_rows"] for c in at.candidates(causal)] == [256, 64, 128]
     assert [c["chunk_rows"] for c in at.candidates(dict(causal, dk=256))] == [256, 64, 128]
-    assert at.candidates(dict(causal, dk=775)) == [], "no Dv slice fits past Dk 774"
+    assert at.candidates(dict(causal, dk=9121)) == [], "no Dv slice fits past Dk 9120"
 
 
 def _engine_pair():

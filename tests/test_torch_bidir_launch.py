@@ -95,7 +95,7 @@ def test_shared_memory_slices_and_head_dim_limit_follow_the_block():
     assert tb.smem_bytes(limit, 8) <= SMEM_PER_BLOCK < tb.smem_bytes(limit + 1, 8)
     assert tb.dv_slice(limit + 1, 8) is None
     # the causal kernel keeps its own block and limit
-    assert tb.max_dk(tcausal.smem_bytes) == 774
+    assert tb.max_dk(tcausal.smem_bytes) == 9120
     assert tb.dv_slice(256, 256, tcausal.smem_bytes) == 64
 
 

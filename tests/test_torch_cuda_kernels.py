@@ -39,7 +39,9 @@ CAUSAL_SHAPES = [(1, 128, 16, 16, 128), (4, 256, 64, 64, 128),
                  (3, 512, 80, 80, 128), (2, 384, 128, 96, 128),
                  (2, 300, 24, 20, 128), (128, 196, 32, 32, 196),
                  (8, 197, 64, 48, 64), (2, 5000, 64, 64, 256), (1, 1, 8, 8, 256),
-                 (2, 7, 32, 16, 64), (1, 100, 16, 16, 1)]
+                 (2, 7, 32, 16, 64), (1, 100, 16, 16, 1), (4, 196, 32, 32, 196),
+                 (4, 196, 32, 32, 64), (3, 70, 7, 5, 32), (1, 33, 1000, 9, 16),
+                 (1, 300, 32, 128, 300)]
 ALL_TILES = list(TILES)
 BIDIR_SHAPES = [(2, 64, 32, 32), (4, 197, 64, 48), (3, 196, 80, 80),
                 (2, 8, 16, 16), (128, 196, 32, 32), (1, 33, 7, 5),
@@ -300,6 +302,84 @@ def test_causal_attention_kernel(cuda, g, n, dk, dv, chunk):
     assert scaled_error(vsum, want["vsum"]) < 1e-3
     assert torch.equal(tcausal.binary_linear_attention(q, k, v, chunk), got), \
         "fixed summation order: run-to-run identical"
+
+
+def _causal(q, k, v, chunk, state):
+    got = tcausal.binary_linear_attention(q, k, v, chunk, return_state=state)
+    return got if state else (got,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("chunk", [196, 64, 128])
+def test_causal_attention_batch_entry_independent_of_g(cuda, chunk, state):
+    """A batch·head's output and final carry are the same bits alone, among
+    G = 4 and among G = 128 (the Dv slice narrows at small G): the
+    partition is fixed by N and the chunk alone."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn((128, 196, 32), generator=gen, device=cuda) for _ in range(3))
+    full = _causal(q, k, v, chunk, state)
+    pick = [0, 77, 127, 5]
+    four = _causal(*(t[pick].contiguous() for t in (q, k, v)), chunk, state)
+    for j, i in enumerate(pick[:3]):
+        one = _causal(*(t[i:i + 1].contiguous() for t in (q, k, v)), chunk, state)
+        for o, x, f in zip(one, four, full):
+            assert torch.equal(o[0], f[i]) and torch.equal(x[j], f[i]), (i, chunk, state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dv", [256, 200])
+def test_causal_attention_slice_width_changes_no_bit(cuda, dv):
+    """At Dk = 256 the first columns of the Dv = 256 and 200 runs, and their
+    final carries, equal runs on v's first columns (other slice widths)."""
+    gen = torch.Generator(device=cuda).manual_seed(dv + 1)
+    q, k = (torch.randn((2, 197, 256), generator=gen, device=cuda) for _ in range(2))
+    v = torch.randn((2, 197, dv), generator=gen, device=cuda)
+    want = _causal(q, k, v, 64, True)
+    for cols in (128, 64, 32, 24, 16, 10, 8):
+        got = _causal(q, k, v[..., :cols].contiguous(), 64, True)
+        out, kv, ksum, vsum = got
+        assert torch.equal(out, want[0][..., :cols]) and torch.equal(kv, want[1][..., :cols])
+        assert torch.equal(ksum, want[2]) and torch.equal(vsum, want[3][..., :cols]), cols
+
+
+@pytest.mark.gpu
+def test_causal_attention_in_groups_of_batch_heads_changes_no_bit(cuda, monkeypatch):
+    """A call whose carry records pass WORK_BYTES runs its batch·heads in
+    groups, one launch each, counted as one call; the bits are those of
+    one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((5, 197, 48), generator=gen, device=cuda) for _ in range(3))
+    want = _causal(q, k, v, 64, True)
+    per_g = 4 * 4 * (48 * 48 + 2 * 48)          # 4 records at chunk 64 with the state
+    monkeypatch.setattr(tcausal, "WORK_BYTES", 2 * per_g)
+    assert tcausal.launch_args(q, v, 64, True)[0][0] == 2
+    before = tcausal.binary_linear_attention.launches
+    got = _causal(q, k, v, 64, True)
+    assert tcausal.binary_linear_attention.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [196, 128, 64])
+def test_causal_call_runs_its_passes_and_the_tuner_sums_them(cuda, chunk):
+    """One call runs the kernels `passes` names, one launch counted; the
+    profiler sees each once per call, and per_call_ms sums them."""
+    from repro_torch.kernels import autotune
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((8, 196, 32), generator=gen, device=cuda) for _ in range(3))
+    names = tcausal.passes(tcausal.partition(196, chunk)[1], False)
+    before = tcausal.binary_linear_attention.launches
+    tcausal.binary_linear_attention(q, k, v, chunk)
+    torch.cuda.synchronize()
+    assert tcausal.binary_linear_attention.launches == before + 1
+    events = autotune.trace_device(lambda: tcausal.binary_linear_attention(q, k, v, chunk), 6)
+    mine = [name for name, _ in events if "binary_linear_attention_" in name]
+    assert len(mine) == 6 * len(names)
+    assert all(any(n in name for n in names) for name in mine)
+    per_call = autotune.per_call_ms(events, "binary_linear_attention_")
+    assert len(per_call) == 6 and all(0 < t < 1 for t in per_call)
 
 
 @pytest.mark.gpu

@@ -95,7 +95,7 @@ def test_codes_zero_and_nan_like_reference():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(2, 5, 8)
-    limit = tbidir.max_dk(tcausal.smem_bytes)            # 774: no Dv slice fits past it
+    limit = tbidir.max_dk(tcausal.smem_bytes)            # 9120: no Dv slice fits past it
     big = torch.zeros(2, 5, limit + 1)
     with pytest.raises(ValueError, match=f"Dk up to {limit}"):
         tcausal.binary_linear_attention(big, big, q)
