@@ -3,15 +3,15 @@ from this checkout, holds each against its plain PyTorch version on the card,
 then drives the port's two paths at the serving geometry (196 tokens,
 d_model 128, 4 layers, 4 heads) and checks what comes out:
 
-- [1] build the five kernel sources (one nvcc each, in parallel);
+- [1] build the six kernel sources (one nvcc each, in parallel);
 - [2] each kernel against its plain version at the serving shapes and at
   ragged ones, the attentions also at head dim 256 (Dv split across
   blocks) and at N = 5000; every tile of the three matmuls bit-identical, a
-  row of shift_matmul and a batch entry of add_matmul the same bits alone
-  as among all; a batch·head of either attention the same bits alone,
-  among G = 4 and among G = 128 and whatever the Dv slice width (the
-  causal one also with its final carry), the bidirectional one on strided
-  projection views as on contiguous copies;
+  row of shift_matmul and of dense_matmul and a batch entry of add_matmul
+  the same bits alone as among all; a batch·head of either attention the
+  same bits alone, among G = 4 and among G = 128 and whatever the Dv slice
+  width (the causal one also with its final carry), the bidirectional one
+  on strided projection views as on contiguous copies;
 - [3] device time of each kernel at its bucket-32 shape (the bidirectional
   attention also at bucket 1, G = 4; the causal one, summed over the
   kernels of a call, also at chunks 64 and 128, at G = 4 and at an LM
@@ -21,14 +21,21 @@ d_model 128, 4 layers, 4 heads) and checks what comes out:
   o-projection's reshape after) at buckets 1 and 32: device µs, kernels
   and host µs per call;
 - [4] serving the frozen ShiftAddViT through the bucketed engine for the
-  dense, stage1 and shiftadd arms, with kernels and attention launches per
-  forward from a profiler trace;
+  dense, stage1 and shiftadd arms (launches of each kernel per forward
+  asserted), with kernels and attention launches per forward from a
+  profiler trace;
 - [5] the autotune entry point: every serving site × bucket (1, 8, 32),
   every launch configuration timed on the card, the table written to
   build/TUNE_kernels_torch.json;
 - [6] serving shiftadd with that table: logits bit-identical to the untuned
-  engine's, 24 shift_matmul + 4 attention launches per forward, tuned and
-  untuned wall times side by side.
+  engine's, 24 shift_matmul + 4 attention + 14 dense_matmul launches per
+  forward, tuned and untuned wall times side by side;
+- [7] an image's logits by bucket: 4 seeded images served alone (bucket 1),
+  among 8 and among 32 by each arm's kernel engine, bit-identical (asserted),
+  and by its plain engine (cuBLAS, torch's reductions), whose gaps are
+  printed; where the bits part stage by stage; the rows of every dense
+  linear at M = one image against M = 8 and 32 images, through the kernel
+  (bit-identical, asserted) and through torch.matmul.
 
     python3 chip_smoke.py
 
@@ -59,6 +66,7 @@ FP32_FLOPS = 67e12
 SHIFT_TOL = 2e-2      # scaled error, bf16 products summed in float32
 ADD_TOL = 2e-2        # the same, for add_matmul and add_matmul_packed
 ATTN_TOL = 1e-3       # scaled error, float32 throughout (both attentions)
+DENSE_TOL = 1e-4      # scaled error, float32 sums in another order than cuBLAS's
 # Engine logits, kernels vs plain versions on the card: the kernels sum in
 # other orders than cuBLAS, which can flip a ±1 attention code or a router
 # argmax that sits at a near-tie; one such flip moves a logit by far more
@@ -229,6 +237,76 @@ def check_row_invariance(torch, dev):
                                      "alone and among G=128")
     log("  add_matmul batch entries 0, 77, 127: bit-identical alone and among G=128 "
         "(ktv, q_ktv)")
+
+
+def check_dense_matmul(torch, dev, shapes):
+    """dense_matmul against its plain version (torch.matmul) at every shape,
+    with and without a bias, run to run identical; a row alone (M = 1) and
+    the 196 rows of the first and last image alone give the bits they get
+    among all M, whose launches take other tiles (every tile of
+    `dense_matmul.TILES` is launched). Returns the max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dense_matmul import TILES, dense_matmul, launch_tile
+    from repro_torch.kernels.tile_matmul import _sms
+    from repro_torch.parity import scaled_error
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = 0.0
+    tiles = set()
+    for m, k, n in shapes:
+        x = torch.randn((m, k), generator=g, device=dev)
+        w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+        b = torch.randn((n,), generator=g, device=dev)
+        for bias in (None, b):
+            got = dense_matmul(x, w, bias)
+            want = ref.dense_matmul_ref(x, w, bias)
+            torch.cuda.synchronize()
+            err = scaled_error(got, want)
+            if not err < DENSE_TOL:
+                raise AssertionError(f"dense_matmul {m}x{k}x{n}: {err} >= {DENSE_TOL}")
+            if not torch.equal(dense_matmul(x, w, bias), got):
+                raise AssertionError(f"dense_matmul {m}x{k}x{n}: differs between runs")
+            worst = max(worst, float((got - want).abs().max()))
+        log(f"  dense_matmul M={m} K={k} N={n}: scaled err {err:.3e} (with bias)")
+        rows = [(i, i + 1) for i in (0, 63, 64, m - 1)]
+        rows += [(0, min(196, m)), (max(0, m - 196), m)]
+        for lo, hi in rows:
+            tiles.add(launch_tile(hi - lo, n, _sms(dev.index or 0)))
+            if not torch.equal(dense_matmul(x[lo:hi].contiguous(), w, b), got[lo:hi]):
+                raise AssertionError(f"dense_matmul {m}x{k}x{n}: rows {lo}:{hi} differ "
+                                     f"alone and among M={m}")
+        tiles.add(launch_tile(m, n, _sms(dev.index or 0)))
+    if tiles != set(TILES):
+        raise AssertionError(f"dense_matmul tiles never launched: {set(TILES) - tiles}")
+    log("  dense_matmul rows 0, 63, 64, M-1 and the first and last 196: bit-identical alone "
+        f"and among all M, over the tiles {sorted(tiles)}")
+    return worst
+
+
+def time_dense_matmul(torch, dev, m, k, n):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dense_matmul import dense_matmul
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    b = torch.randn((n,), generator=g, device=dev)
+    t, how = timed(torch, ms=lambda: dense_matmul(x, w, b),
+                   plain_ms=lambda: ref.dense_matmul_ref(x, w, b),
+                   library_ms=lambda: torch.addmm(b, x, w))
+    bound, by = bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n, FP32_FLOPS)
+    return t["ms"], t["plain_ms"], t["library_ms"], bound, by, how
+
+
+# dense_matmul's phase-[3] shapes at bucket 32: (M, K, N) of the shiftadd
+# forward's dense linears (the Mult expert at its 113 capacity rows per
+# image) and of the dense and stage1 arms' projections.
+DENSE_TIMED = {"dense_matmul": (6272, 48, 128),
+               "dense_matmul router": (6272, 128, 2),
+               "dense_matmul mult up": (3616, 128, 256),
+               "dense_matmul mult down": (3616, 256, 128),
+               "dense_matmul head": (32, 128, 10),
+               "dense_matmul q/k/v/o": (6272, 128, 128)}
 
 
 def check_attention(torch, dev, shapes):
@@ -634,50 +712,66 @@ def seeded_live_params(torch, params, seed):
     return params
 
 
+def arm_model(torch, arm):
+    """(model, params) of one arm at 196 tokens, with the seeded router and
+    DWConv every serving phase uses."""
+    from repro_torch.core.policy import DENSE
+    from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
+    from repro_torch.serve.vision import build_policy_model
+
+    cfg = ViTConfig(image_size=56)
+    dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
+    model, params = build_policy_model(cfg, arm, dense_model, dense_model.init(0))
+    return model, seeded_live_params(torch, with_seeded_router(params, 7), 8)
+
+
+# The serving kernels by a piece of their device symbol in a trace.
+SERVING_SYMBOLS = {"shift_matmul": "DecodePo2", "bidir_binary_attention": "bidir_binary_attention",
+                   "dense_matmul": "dense_matmul_kernel"}
+
+
 def profile_forward(torch, engine, bucket, iters=20):
     """Device time of one forward on a full bucket: (kernels per forward,
     device-busy ms per forward, top kernels as (name, ms, launches) per
-    forward, shift_matmul's and the bidirectional attention's (ms,
-    launches) per forward); "not measured" where the profiler recorded
-    nothing."""
+    forward, {serving kernel: (ms, launches) per forward}); "not measured"
+    where the profiler recorded nothing."""
     c = engine.model.cfg
     images = torch.randn((bucket, c.image_size, c.image_size, c.in_channels),
                          device=engine.device)
     by_name = kernel_times(torch, lambda: engine.infer(images), iters)
     if not by_name:
-        return "not measured", "not measured", [], "not measured", "not measured"
+        return "not measured", "not measured", [], {k: "not measured" for k in SERVING_SYMBOLS}
     busy_ms = sum(t for t, _ in by_name.values()) / iters / 1e3
     n_kernels = sum(n for _, n in by_name.values()) / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    shift = [(t, n) for name, (t, n) in by_name.items() if "DecodePo2" in name]
-    shift_ms = (sum(t for t, _ in shift) / iters / 1e3, sum(n for _, n in shift) / iters)
-    attn = [(t, n) for name, (t, n) in by_name.items() if "bidir_binary_attention" in name]
-    attn_ms = (sum(t for t, _ in attn) / iters / 1e3, sum(n for _, n in attn) / iters)
+    serving = {}
+    for kernel, symbol in SERVING_SYMBOLS.items():
+        hits = [(t, n) for name, (t, n) in by_name.items() if symbol in name]
+        serving[kernel] = (sum(t for t, _ in hits) / iters / 1e3,
+                           sum(n for _, n in hits) / iters)
     return n_kernels, busy_ms, [(name[:70], t / iters / 1e3, n / iters)
-                                for name, (t, n) in top], shift_ms, attn_ms
+                                for name, (t, n) in top], serving
 
 
 def serve_arms(torch, dev):
     """Serve requests of REQUEST_SIZES through each arm's engine on the card.
     Returns per-arm launch counts, per-bucket median latencies and errors."""
-    from repro_torch.core.policy import DENSE
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_vit import bucket_latencies
-    from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
     from repro_torch.parity import scaled_error
-    from repro_torch.serve.vision import BucketedViTEngine, build_policy_model
+    from repro_torch.serve.vision import BucketedViTEngine
 
-    cfg = ViTConfig(image_size=56)                # 196 tokens, the serving geometry
-    dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
-    dense_params = dense_model.init(0)
     g = torch.Generator(device=dev).manual_seed(6)
     requests = [torch.randn((s, 56, 56, 3), generator=g, device=dev) for s in REQUEST_SIZES]
     forwards = sum(-(-s // 32) for s in REQUEST_SIZES)
-    expected = {"shiftadd": (24, 4), "stage1": (0, 4), "dense": (0, 0)}
+    # shift_matmul, bidir_binary_attention and dense_matmul launches per
+    # forward: the dense linears are the patch embedding and the head, and
+    # per layer the router and the Mult expert's two (shiftadd) or the four
+    # projections and the MLP's two (stage1, dense).
+    expected = {"shiftadd": (24, 4, 14), "stage1": (0, 4, 26), "dense": (0, 0, 26)}
     results = {}
     for arm in ("shiftadd", "stage1", "dense"):
-        model, params = build_policy_model(cfg, arm, dense_model, dense_params)
-        params = seeded_live_params(torch, with_seeded_router(params, 7), 8)
+        model, params = arm_model(torch, arm)
         engine = BucketedViTEngine(model, params, device=dev).warmup()
         plain = BucketedViTEngine(model, params, device=dev, impl="torch").warmup()
         if engine.impl != "cuda" or engine.buckets != (1, 8, 32):
@@ -688,8 +782,9 @@ def serve_arms(torch, dev):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
 
-        want = (expected[arm][0] * forwards, expected[arm][1] * forwards)
-        got = (counts["shift_matmul"], counts["bidir_binary_attention"])
+        want = tuple(e * forwards for e in expected[arm])
+        got = (counts["shift_matmul"], counts["bidir_binary_attention"],
+               counts["dense_matmul"])
         if got != want:
             raise AssertionError(f"{arm}: launches {got}, expected {want} "
                                  f"over {forwards} forwards")
@@ -716,15 +811,15 @@ def serve_arms(torch, dev):
         lat_plain = bucket_latencies(plain, iters=30) if arm != "dense" else None
         profiles = {}
         for b in (1, 32):
-            n_k, busy, top, shift, attn = profile_forward(torch, engine, b)
+            n_k, busy, top, serving = profile_forward(torch, engine, b)
+            attn = serving["bidir_binary_attention"]
             if attn != "not measured" and attn[1] != expected[arm][1]:
                 raise AssertionError(f"{arm} bucket {b}: {attn[1]} attention kernels per "
                                      f"forward in the trace, expected {expected[arm][1]}")
             log(f"  {arm} bucket {b}: {n_k} kernels per forward, device busy {busy} ms, "
-                f"attention (ms, launches) per forward {attn}")
+                f"(ms, launches) per forward {serving}")
             profiles[b] = {"kernels_per_forward": n_k, "device_busy_ms": busy,
-                           "shift_matmul_ms_launches": shift,
-                           "attention_ms_launches": attn,
+                           "serving_kernels_ms_launches": serving,
                            "idle_share": (1.0 - busy / (lat[b] * 1e3)
                                           if isinstance(busy, float) and busy > 0
                                           else "not measured"),
@@ -777,16 +872,11 @@ def serve_tuned(torch, dev, table):
     """Phase [6]: shiftadd served with the tuned table beside the untuned
     engine; logits bit-identical, launches per forward unchanged. Returns the
     tuned engine's launch counts over the requests."""
-    from repro_torch.core.policy import DENSE
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_vit import bucket_latencies
-    from repro_torch.nn.vit import ShiftAddViT, ViTConfig, with_seeded_router
-    from repro_torch.serve.vision import BucketedViTEngine, build_policy_model
+    from repro_torch.serve.vision import BucketedViTEngine
 
-    cfg = ViTConfig(image_size=56)
-    dense_model = ShiftAddViT(dataclasses.replace(cfg, policy=DENSE))
-    model, params = build_policy_model(cfg, "shiftadd", dense_model, dense_model.init(0))
-    params = seeded_live_params(torch, with_seeded_router(params, 7), 8)
+    model, params = arm_model(torch, "shiftadd")
     untuned = BucketedViTEngine(model, params, device=dev).warmup()
     tuned = BucketedViTEngine(model, params, device=dev, tune=table).warmup()
     g = torch.Generator(device=dev).manual_seed(6)
@@ -797,8 +887,8 @@ def serve_tuned(torch, dev, table):
     outs = [tuned.infer(r) for r in requests]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    got = (counts["shift_matmul"], counts["bidir_binary_attention"])
-    if got != (24 * forwards, 4 * forwards):
+    got = (counts["shift_matmul"], counts["bidir_binary_attention"], counts["dense_matmul"])
+    if got != (24 * forwards, 4 * forwards, 14 * forwards):
         raise AssertionError(f"tuned shiftadd: launches {got} over {forwards} forwards")
     for r, o in zip(requests, outs):
         if not torch.equal(o, untuned.infer(r)):
@@ -822,6 +912,149 @@ def serve_tuned(torch, dev, table):
             f"{statistics.median(t):.4f} (untuned {' '.join(f'{v:.4f}' for v in u)}; "
             f"tuned {' '.join(f'{v:.4f}' for v in t)})")
     return counts
+
+
+# Phase [7]: 4 seeded images served alone (bucket 1) and at these rows of a
+# batch of 8 and of 32 other seeded images.
+PROBE_ROWS = {8: (0, 3, 5, 7), 32: (1, 10, 20, 31)}
+
+
+def bit_gap(torch, a, b):
+    """(elements whose bits differ, largest absolute gap) of two tensors."""
+    return int((a != b).sum()), float((a - b).abs().max())
+
+
+def probe_logits(torch, engine, seed=16):
+    """{bucket: (4, n_classes) logits} of the probe images alone and among
+    the others at PROBE_ROWS."""
+    c = engine.model.cfg
+    shape = (c.image_size, c.image_size, c.in_channels)
+    g = torch.Generator(device=engine.device).manual_seed(seed)
+    probe = torch.randn((4,) + shape, generator=g, device=engine.device)
+    got = {1: torch.cat([engine.infer(probe[i:i + 1]) for i in range(4)])}
+    for b, rows in PROBE_ROWS.items():
+        batch = torch.randn((b,) + shape, generator=g, device=engine.device)
+        batch[list(rows)] = probe
+        got[b] = engine.infer(batch)[list(rows)]
+    return got
+
+
+def bucket_gaps(torch, engine):
+    """{"a vs b": (differing logits of 40, largest gap)} over the probe
+    images served at buckets a and b."""
+    got = probe_logits(torch, engine)
+    return {f"{a} vs {b}": bit_gap(torch, got[a], got[b])
+            for a, b in ((1, 8), (1, 32), (8, 32))}
+
+
+def forward_stages(torch, model, params, images, impl):
+    """[(stage, (B, ...) tensor)] of `ShiftAddViT.infer`'s steps: the patch
+    embedding, each block's output, the final norm and the logits. Calls
+    only what every version of the port has (tools/ab_attention.py runs it
+    on another checkout)."""
+    from repro_torch.nn.layers import call_linear
+
+    x = call_linear(model.patch_embed, params["patch_embed"], model.patchify(images), impl)
+    out = [("patch embed", x)]
+    for i, (blk, p) in enumerate(zip(model.blocks, params["blocks"])):
+        x = blk.infer(p, x, impl=impl)
+        out.append((f"block {i}", x))
+    out.append(("final norm", model.final_norm(params["final_norm"], x)))
+    out.append(("logits", model.infer(params, images, impl=impl)))
+    return out
+
+
+def stage_gaps(torch, engine, seed=16):
+    """Where a probe image's bits part between bucket 1 and row 1 of a
+    batch of 32: {stage: (differing elements, largest gap)}."""
+    c = engine.model.cfg
+    shape = (c.image_size, c.image_size, c.in_channels)
+    g = torch.Generator(device=engine.device).manual_seed(seed)
+    probe = torch.randn((1,) + shape, generator=g, device=engine.device)
+    batch = torch.randn((32,) + shape, generator=g, device=engine.device)
+    batch[1] = probe[0]
+    with torch.inference_mode():
+        alone = forward_stages(torch, engine.model, engine.plan.params, probe, engine.impl)
+        among = forward_stages(torch, engine.model, engine.plan.params, batch, engine.impl)
+    return {name: bit_gap(torch, a[0], b[1]) for (name, a), (_, b) in zip(alone, among)}
+
+
+def dense_linear_gaps(torch, dev, model, params, impl, seed=17):
+    """The rows of the shiftadd forward's dense linears (`core/dense.py`):
+    the patch embedding, the first block's router and Mult expert (up and
+    down, at 196 rows per image and at its 113 capacity rows) and the head
+    (one row per image). An image's rows computed alone (M = rows per image)
+    against the same rows among b images (M = b · rows per image), for the
+    images at the first and last row of b = 8 and 32. Returns
+    {name: {b: (differing elements, largest gap)}}."""
+    from repro_torch.nn.layers import call_linear
+
+    n = model.cfg.n_patches
+    feed = model.blocks[0].feed
+    i_mult = feed.expert_kinds.index("mult")
+    mult, fp = feed.experts[i_mult], params["blocks"][0]["feed"]
+    fe = fp["experts"][i_mult]
+    cap = feed.capacity_plan(n)[0][i_mult]
+    patch_dim = model.cfg.patch_size ** 2 * model.cfg.in_channels
+    d, h = model.cfg.d_model, model.cfg.d_ff
+    cases = {  # name: (linear, its params, K, rows per image)
+        "patch embed": (model.patch_embed, params["patch_embed"], patch_dim, n),
+        "router": (feed.router, fp["router"], d, n),
+        "mult up": (mult.up, fe["up"], d, n),
+        "mult down": (mult.down, fe["down"], h, n),
+        "mult up (capacity rows)": (mult.up, fe["up"], d, cap),
+        "mult down (capacity rows)": (mult.down, fe["down"], h, cap),
+        "head": (model.head, params["head"], d, 1),
+    }
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    with torch.inference_mode():
+        for name, (lin, p, k, rows) in cases.items():
+            x = torch.randn((32 * rows, k), generator=g, device=dev)
+            out[name] = {}
+            for b in (8, 32):
+                among = call_linear(lin, p, x[:b * rows], impl)
+                gaps = [bit_gap(torch, call_linear(lin, p, x[j * rows:(j + 1) * rows], impl),
+                                among[j * rows:(j + 1) * rows]) for j in (0, b - 1)]
+                out[name][b] = (sum(g_[0] for g_ in gaps), max(g_[1] for g_ in gaps))
+    return out
+
+
+def check_bucket_invariance(torch, dev):
+    """Phase [7]. For each arm, the probe images' logits by bucket from the
+    kernel engine (impl="cuda") and from the plain one (impl="torch":
+    cuBLAS for the dense linears, torch's reductions for the head); for
+    shiftadd, where the bits part stage by stage, and the dense linears'
+    rows by M, through the kernel and through torch.matmul. Raises unless
+    every gap of the kernels is zero. Returns what it printed."""
+    from repro_torch.serve.vision import BucketedViTEngine
+
+    out = {}
+    for arm in ("shiftadd", "stage1", "dense"):
+        model, params = arm_model(torch, arm)
+        for impl in ("cuda", "torch"):
+            engine = BucketedViTEngine(model, params, device=dev, impl=impl).warmup()
+            gaps = bucket_gaps(torch, engine)
+            out[f"{arm} {impl} logits"] = gaps
+            log(f"  {arm} impl={impl} logits, buckets " + "; ".join(
+                f"{pair}: {n_diff} of 40 differ, largest gap {gap:.3e}"
+                for pair, (n_diff, gap) in gaps.items()))
+            if arm == "shiftadd":
+                stages = stage_gaps(torch, engine)
+                out[f"{arm} {impl} stages"] = stages
+                log(f"  {arm} impl={impl} bucket 1 vs 32 by stage (differing, largest "
+                    "gap): " + "; ".join(f"{k} {v[0]}, {v[1]:.3e}" for k, v in stages.items()))
+                for name, by_b in dense_linear_gaps(torch, dev, model, engine.plan.params,
+                                                    impl).items():
+                    out[f"{arm} {impl} {name}"] = by_b
+                    log(f"  impl={impl} {name}: " + "; ".join(
+                        f"M x{b}: {n_diff} differ, largest gap {gap:.3e}"
+                        for b, (n_diff, gap) in by_b.items()))
+    bad = {k: v for k, v in out.items() if " cuda " in k
+           and any(x[0] for x in v.values())}
+    if bad:
+        raise AssertionError(f"bits change with the batch on the kernels: {bad}")
+    return out
 
 
 def main():
@@ -880,6 +1113,14 @@ def main():
         (2, 5000, 64, 64, 256), (8, 196, 256, 256, 64), (2, 300, 256, 200, 128),
         (4, 196, 32, 32, 196), (32, 4096, 128, 128, 256)])
     check_causal_invariance(torch, dev)
+    # The dense linears at buckets 1 and 32 (patch embedding, router, the
+    # Mult expert at its capacity rows, the head, the dense and stage1 arms'
+    # projections and MLP) and ragged shapes.
+    dense_shapes = [(196, 48, 128), (196, 128, 2), (113, 128, 256), (113, 256, 128),
+                    (1, 128, 10), (196, 128, 128), (196, 128, 256), (196, 256, 128)]
+    dense_shapes += [(32 * m, k, n) if m > 1 else (32, k, n) for m, k, n in dense_shapes]
+    dense_shapes += [(70, 300, 200), (65, 17, 65), (1, 1, 1)]
+    dense_err = check_dense_matmul(torch, dev, dense_shapes)
 
     log("[3] timing at the bucket-32 shapes")
     timings = {
@@ -896,8 +1137,10 @@ def main():
     }
     timings.update({name: time_causal(torch, dev, *shape)
                     for name, shape in CAUSAL_TIMED.items()})
+    timings.update({name: time_dense_matmul(torch, dev, *shape)
+                    for name, shape in DENSE_TIMED.items()})
     for name, (ms, plain, lib, b, by, _) in timings.items():
-        earlier = EARLIER_MS[name]
+        earlier = EARLIER_MS.get(name)
         log(f"  {name}: kernel {ms:.5f} ms (before its redesign: "
             f"{'not measured' if earlier is None else f'{earlier:.5f}'}), "
             f"plain {plain:.5f} ms, "
@@ -912,7 +1155,7 @@ def main():
     log("[4] serving the three arms at 196 tokens")
     arms = serve_arms(torch, dev)
     serving = {k: sum(a["launches"][k] for a in arms.values())
-               for k in ("shift_matmul", "bidir_binary_attention")}
+               for k in ("shift_matmul", "bidir_binary_attention", "dense_matmul")}
 
     log("[5] autotune: every serving site x bucket (1, 8, 32), timed on the card")
     from repro_torch.kernels import ops
@@ -929,6 +1172,8 @@ def main():
         raise AssertionError(f"the autotune/tuned-serving path launched no {missing}")
     log(f"  launches on the autotune path [5]: {tune_launches}; tuned serving [6]: "
         f"{tuned_launches}")
+    log("[7] an image's logits by bucket (1, 8, 32), kernels and plain versions")
+    check_bucket_invariance(torch, dev)
 
     kernels = []
     for name, source, replaces, err, shape in (
@@ -946,7 +1191,11 @@ def main():
              "G=128 M=32 K=200 N=32 fp32 x, 1-bit b (ktv, bucket 32)"),
             ("binary_linear_attention", "src/repro_torch/kernels/csrc/linear_attention.cu",
              "src/repro/kernels/linear_attention.py:97", causal_err,
-             "G=128 N=196 D=32 fp32 causal, chunk 196")):
+             "G=128 N=196 D=32 fp32 causal, chunk 196"),
+            ("dense_matmul", "src/repro_torch/kernels/csrc/dense_matmul.cu",
+             "none (the reference leaves its dense linears to XLA: "
+             "src/repro/core/dense.py:34)", dense_err,
+             "M=6272 K=48 N=128 fp32 with bias (patch embedding, bucket 32)")):
         ms, plain, lib, b, by, how = timings[name]
         by_path = {"serving [4]": serving.get(name, 0), "autotune [5]": tune_launches[name],
                    "tuned serving [6]": tuned_launches[name]}
@@ -963,6 +1212,12 @@ def main():
                       "bound_by": timings[key][4]}
                 for key in CAUSAL_TIMED if key != name}
             row["autotune_timing"] = causal_timing
+        if name == "dense_matmul":                 # the other dense linears
+            row["other_shapes"] = {
+                key: {"shape": DENSE_TIMED[key], "ms": timings[key][0],
+                      "plain_ms": timings[key][1], "library_ms": timings[key][2],
+                      "bound_ms": timings[key][3], "bound_by": timings[key][4]}
+                for key in DENSE_TIMED if key != name}
         if name == "bidir_binary_attention":       # also at bucket 1
             ms4, plain4, _, b4, _, _ = timings["bidir_binary_attention G=4"]
             row.update(ms_g4=ms4, plain_ms_g4=plain4, bound_ms_g4=b4,

@@ -19,7 +19,16 @@ def truncated_normal(generator, shape, std):
 
 
 class Dense:
-    """y = x @ W + b, with truncated-normal init scaled by fan-in."""
+    """y = x @ W + b, with truncated-normal init scaled by fan-in.
+
+    Through `kernels.ops.dense_matmul`: impl="cuda" (the default on the
+    card) runs the hand-written float32 kernel, whose sums are fixed by K
+    alone, so a row's bits do not depend on the batch around it; "torch"
+    (the default on the CPU) runs `torch.matmul`."""
+
+    # Serving threads the kernel choice explicitly (engine → model → here);
+    # nn.layers.call_linear keys on this attribute. Dense has no tune entry.
+    accepts_impl = True
 
     def __init__(self, in_features, out_features, use_bias=True,
                  dtype=torch.float32):
@@ -36,8 +45,10 @@ class Dense:
             params["bias"] = torch.zeros(self.out_features)
         return params
 
-    def __call__(self, params, x):
-        y = torch.matmul(x.to(self.dtype), params["kernel"].to(self.dtype))
-        if self.use_bias:
-            y = y + params["bias"].to(self.dtype)
-        return y
+    def __call__(self, params, x, impl=None, tune=None):
+        from repro_torch.kernels import ops
+
+        del tune
+        bias = params["bias"].to(self.dtype) if self.use_bias else None
+        return ops.dense_matmul(x.to(self.dtype), params["kernel"].to(self.dtype),
+                                bias, impl)

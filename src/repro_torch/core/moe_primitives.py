@@ -33,10 +33,8 @@ class _MLPExpert:
         return {"up": self.up.init(generator), "down": self.down.init(generator)}
 
     def __call__(self, params, x, impl=None, tune=None):
-        if self.kind == "shift":
-            h = self.up(params["up"], x, impl=impl, tune=tune)
-            return self.down(params["down"], gelu(h), impl=impl, tune=tune)
-        return self.down(params["down"], gelu(self.up(params["up"], x)))
+        h = self.up(params["up"], x, impl=impl, tune=tune)
+        return self.down(params["down"], gelu(h), impl=impl, tune=tune)
 
 
 class MoEPrimitives:
@@ -121,19 +119,19 @@ class MoEPrimitives:
         gate = torch.gather(probs, -1, top1[..., None])
         return probs, top1, gate
 
-    def _route_infer(self, params, xg):
-        clean_logits = self.router(params["router"], xg.float())
+    def _route_infer(self, params, xg, impl=None):
+        clean_logits = self.router(params["router"], xg.float(), impl=impl)
         _, top1, gate = self._gates(clean_logits, clean_logits)
         return top1, gate[..., 0].float()
 
-    def _dispatch_tokens(self, params, x):
+    def _dispatch_tokens(self, params, x, impl=None):
         """group per image → route → gather-ordered dispatch. Returns
         (info, per-expert segments, ungroup)."""
         from repro_torch.nn.dispatch import dispatch_infer, group_rows
 
         xg, ungroup = group_rows(x, self.d_model)
         s = xg.shape[1]
-        top1, gate = self._route_infer(params, xg)
+        top1, gate = self._route_infer(params, xg, impl)
         caps, offsets = self.capacity_plan(s)
         buf, info = dispatch_infer(xg.to(self.dtype), top1, gate, list(caps))
         segments = [buf[:, off:off + cap, :] for off, cap in zip(offsets, caps)]
@@ -145,7 +143,7 @@ class MoEPrimitives:
         gather combine. Returns y only. impl/tune reach the kernel experts."""
         from repro_torch.nn.dispatch import combine_infer
 
-        info, segments, ungroup = self._dispatch_tokens(params, x)
+        info, segments, ungroup = self._dispatch_tokens(params, x, impl)
         outs = [expert(params["experts"][i], seg, impl=impl, tune=tune)
                 if getattr(expert, "accepts_impl", False)
                 else expert(params["experts"][i], seg)

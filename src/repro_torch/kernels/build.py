@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("shift_matmul", "bidir_linear_attention", "add_matmul",
-           "add_matmul_packed", "linear_attention")
+           "add_matmul_packed", "linear_attention", "dense_matmul")
 
 _libs = {}
 _lock = threading.Lock()

@@ -3,8 +3,9 @@ Counterpart of `repro/kernels/ops.py`.
 
 - "cuda":  the hand-written kernels (`shift_matmul.py`, `add_matmul.py`,
            `add_matmul_packed.py`, `linear_attention.py`,
-           `bidir_linear_attention.py`). On a CUDA tensor they launch or
-           raise; on a CPU tensor they run their plain versions.
+           `bidir_linear_attention.py`, `dense_matmul.py`). On a CUDA tensor
+           they launch or raise; on a CPU tensor they run their plain
+           versions.
 - "torch": the plain PyTorch versions (`ref.py`) on any device.
 
 `impl=None` takes the tensor's device: "cuda" on a GPU, "torch" on the CPU.
@@ -27,6 +28,7 @@ from repro_torch.kernels.add_matmul import add_matmul as _add_matmul
 from repro_torch.kernels.add_matmul_packed import add_matmul_packed as _add_matmul_packed
 from repro_torch.kernels.add_matmul_packed import unpack_bits
 from repro_torch.kernels.bidir_linear_attention import bidir_binary_attention
+from repro_torch.kernels.dense_matmul import dense_matmul as _dense_matmul
 from repro_torch.kernels.linear_attention import CHUNK
 from repro_torch.kernels.linear_attention import binary_linear_attention as _causal
 from repro_torch.kernels.shift_matmul import shift_matmul as _shift_matmul
@@ -36,7 +38,8 @@ KERNELS = {"shift_matmul": _shift_matmul,
            "bidir_binary_attention": bidir_binary_attention,
            "add_matmul": _add_matmul,
            "add_matmul_packed": _add_matmul_packed,
-           "binary_linear_attention": _causal}
+           "binary_linear_attention": _causal,
+           "dense_matmul": _dense_matmul}
 
 
 def _resolve(impl, t):
@@ -78,6 +81,21 @@ def shift_matmul(x, w_packed, impl=None, tune=None):
         m, k = x2.shape
         tile = _tile(tune, "shift_matmul", g=1, m=m, k=k, n=w_packed.shape[-1])
         y = _shift_matmul(x2, w_packed, tile)
+    return y.reshape(*lead, -1)
+
+
+def dense_matmul(x, w, bias=None, impl=None):
+    """x: (..., K), w: (K, N), bias: (N,) or None, float32 → (..., N): the
+    `Dense` linear. impl="cuda" sums each output in K order, so a row's
+    bits never depend on the rows beside it."""
+    impl = _resolve(impl, x)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if impl == "torch":
+        y = ref.dense_matmul_ref(x2, w, bias)
+    else:
+        y = _dense_matmul(x2.contiguous(), w.contiguous(),
+                          None if bias is None else bias.contiguous())
     return y.reshape(*lead, -1)
 
 

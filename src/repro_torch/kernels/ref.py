@@ -27,6 +27,14 @@ def shift_matmul_ref(x, w_packed, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
+def dense_matmul_ref(x, w, bias=None):
+    """x: (M, K), w: (K, N), bias: (N,) or None → x @ w (+ bias), float32:
+    the library's product, in its own summation order (the kernel's is one
+    chain of FMAs in K order per output)."""
+    y = torch.matmul(x, w)
+    return y if bias is None else y + bias
+
+
 def _codes(x):
     """±1 Hamming codes in float32: +1 where x >= 0, else -1 (NaN too)."""
     return torch.where(x >= 0, 1.0, -1.0).float()

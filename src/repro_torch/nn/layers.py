@@ -27,7 +27,7 @@ def make_linear(kind, d_in, d_out, use_bias=False, dtype=torch.float32):
 
 def call_linear(layer, params, x, impl=None, tune=None):
     """Apply a `make_linear` product, threading the kernel choice and the
-    tune table to layers that have a kernel (ShiftLinear); Dense has none."""
+    tune table to layers that take them (ShiftLinear, Dense)."""
     if getattr(layer, "accepts_impl", False):
         return layer(params, x, impl=impl, tune=tune)
     return layer(params, x)

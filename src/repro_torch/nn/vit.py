@@ -3,8 +3,12 @@
 
 patchify (linear on flattened patches) → bidirectional transformer blocks
 whose attention / projections / MLPs follow the ShiftAddPolicy → final
-LayerNorm → mean pool → classifier head, written as a broadcast multiply
-and a within-row sum so each image's logits depend on that image alone.
+LayerNorm → mean pool → classifier head. Each image's logits depend on that
+image alone, to the bit: with the kernels on the card every dense linear,
+the head included, runs the fixed-order `dense_matmul` kernel (cuBLAS and
+torch's reductions both sum a row in an order that changes with the batch
+there); elsewhere the head is a broadcast multiply and a within-row sum, as
+the reference writes it.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from repro_torch.core import reparam
 from repro_torch.core.dense import Dense
 from repro_torch.core.policy import ShiftAddPolicy
+from repro_torch.kernels import ops
 from repro_torch.nn.blocks import TransformerBlock
 from repro_torch.nn.layers import LayerNorm
 
@@ -94,11 +99,14 @@ class ShiftAddViT:
         kernels.autotune.TuneTable, or None for the defaults) thread to every
         kernel call."""
         dt = self.cfg.activation_dtype
-        x = self.patch_embed(params["patch_embed"], self.patchify(images).to(dt))
+        x = self.patch_embed(params["patch_embed"], self.patchify(images).to(dt),
+                             impl=impl)
         for blk, p in zip(self.blocks, params["blocks"]):
             x = blk.infer(p, x, impl=impl, tune=tune)
         x = self.final_norm(params["final_norm"], x)
         pooled = x.mean(dim=1)                                     # (B, d)
+        if pooled.is_cuda and ops._resolve(impl, pooled) == "cuda":
+            return self.head(params["head"], pooled, impl="cuda")
         w = params["head"]["kernel"].to(pooled.dtype)
         logits = (pooled[:, :, None] * w[None]).sum(dim=1)
         if "bias" in params["head"]:

@@ -3,7 +3,7 @@ PyTorch/CUDA port, on the card, measured with `chip_smoke.py`'s own timing
 functions so that two checkouts can be compared in turns.
 
     python3 tools/ab_attention.py [--src DIR] [--label NAME]
-                                  [--parts attention causal forward]
+                                  [--parts attention causal forward buckets]
 
 `--src` is the `src/` directory whose `repro_torch` is measured (this
 checkout's by default): unpack the other checkout under `build/` and run
@@ -14,9 +14,14 @@ parent, change, change, parent on one card. It prints, from `chip_smoke`:
 - causal (`time_causal` at `CAUSAL_TIMED`): the causal kernel's device ms
   per call (summed over the call's kernels) at G = 128, N = 196, D = 32 with
   chunks 196, 64 and 128, at G = 4, and at G = 32, N = 4096, D = 128;
-- forward (`profile_forward`): device-busy ms, kernels and attention
-  launches per forward of each arm at buckets 1 and 32, beside the median
-  wall ms of a full-bucket forward (`launch.serve_vit.bucket_latencies`).
+- forward (`profile_forward`): device-busy ms, kernels, and each serving
+  kernel's ms and launches per forward of each arm at buckets 1 and 32,
+  beside the median
+  wall ms of a full-bucket forward (`launch.serve_vit.bucket_latencies`);
+- buckets (`bucket_gaps`, `stage_gaps`): for each arm's engine with its
+  default kernels, the logits of 4 probe images alone (bucket 1), among 8
+  and among 32, compared bit for bit (differing logits, largest gap), and
+  for shiftadd where the bits part stage by stage.
 Only what every version of the port has is called. Prints the card's name
 and power limit and, last, one JSON object. Needs one CUDA device; imports
 nothing of JAX.
@@ -31,7 +36,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PARTS = ("attention", "causal", "forward")
+PARTS = ("attention", "causal", "forward", "buckets")
 
 
 def main():
@@ -57,7 +62,7 @@ def main():
     print(f"card: {smi}; {args.label}: {args.src}", flush=True)
     dev = torch.device("cuda", 0)
     result = {"label": args.label, "card": smi, "kernel_ms": {}, "site": {},
-              "causal_ms": {}, "forward": {}}
+              "causal_ms": {}, "forward": {}, "buckets": {}}
     if "attention" in args.parts:
         for g in (4, 128):
             result["kernel_ms"][f"G={g}"] = cs.time_attention(torch, dev, g, 196, 32)[0]
@@ -70,6 +75,8 @@ def main():
             result["causal_ms"][f"{name} {shape}"] = cs.time_causal(torch, dev, *shape)[0]
     if "forward" in args.parts:
         forward(torch, dev, cs, args.wall_iters, result)
+    if "buckets" in args.parts:
+        buckets(torch, dev, cs, result)
     for key, val in result.items():
         if isinstance(val, dict):
             for sub, x in val.items():
@@ -95,10 +102,22 @@ def forward(torch, dev, cs, wall_iters, result):
         engine = BucketedViTEngine(model, with_seeded_router(params, 7), device=dev).warmup()
         wall = bucket_latencies(engine, iters=wall_iters)
         for b in (1, 32):
-            n_k, busy, _, _, attn = cs.profile_forward(torch, engine, b)
+            n_k, busy, _, serving = cs.profile_forward(torch, engine, b)
             result["forward"][f"{arm} b{b}"] = {
                 "device_busy_ms": busy, "kernels": n_k,
-                "attention_ms_launches": attn, "wall_ms": wall[b] * 1e3}
+                "serving_kernels_ms_launches": serving, "wall_ms": wall[b] * 1e3}
+
+
+def buckets(torch, dev, cs, result):
+    """Each arm's logits by bucket, and shiftadd's by stage, into
+    result["buckets"]."""
+    from repro_torch.serve.vision import BucketedViTEngine
+
+    for arm in ("shiftadd", "stage1", "dense"):
+        engine = BucketedViTEngine(*cs.arm_model(torch, arm), device=dev).warmup()
+        result["buckets"][f"{arm} logits"] = cs.bucket_gaps(torch, engine)
+        if arm == "shiftadd":
+            result["buckets"][f"{arm} stages"] = cs.stage_gaps(torch, engine)
 
 
 if __name__ == "__main__":
